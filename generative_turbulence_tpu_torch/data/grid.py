@@ -1,0 +1,108 @@
+"""Sparse <-> dense grid embedding with torch index ops.
+
+The simulation stores only in-domain cell values ``(B, n_cells, F)``; the
+models work on dense padded voxel grids ``(B, X, Y, Z, F)`` (channels last).
+``GridMap`` holds the per-case index tensors, on one device, that move values
+between the two.  Port of ``generative_turbulence_tpu/data/grid.py`` without
+its LRU cache and cell bucketing, which work around XLA recompiles.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .schema import CaseMetadata
+from .variables import Variable, total_dims
+
+
+@dataclasses.dataclass(frozen=True)
+class GridMap:
+    """Index tensors of one case geometry for a fixed variable tuple.
+
+      cell_idx        (N,)      int64 flat indices of in-domain cells
+      dirichlet_idx   (M,)      int64 flat indices of fixed-value boundary cells
+      dirichlet_vals  (M, F)    float32 boundary values (stacked channels)
+      cell_types      (X, Y, Z) int64 cell-type ids
+      inside_mask     (X, Y, Z) bool
+      h               (3,)      float32 physical cell size
+    """
+
+    cell_idx: torch.Tensor
+    dirichlet_idx: torch.Tensor
+    dirichlet_vals: torch.Tensor
+    cell_types: torch.Tensor
+    inside_mask: torch.Tensor
+    h: torch.Tensor
+    shape: Tuple[int, int, int]
+    n_features: int
+
+    @staticmethod
+    def from_metadata(
+        meta: CaseMetadata,
+        variables: Sequence[Variable],
+        *,
+        device: torch.device | str = "cpu",
+    ) -> "GridMap":
+        d_idx, d_vals = meta.dirichlet_table(variables)
+        as_long = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)  # noqa: E731
+        return GridMap(
+            cell_idx=as_long(meta.cell_idx),
+            dirichlet_idx=as_long(d_idx),
+            dirichlet_vals=torch.as_tensor(
+                np.asarray(d_vals, dtype=np.float32), device=device
+            ),
+            cell_types=as_long(meta.cell_types),
+            inside_mask=torch.as_tensor(meta.inside_mask, device=device),
+            h=torch.as_tensor(np.asarray(meta.h, dtype=np.float32), device=device),
+            shape=tuple(int(c) for c in meta.cell_counts),
+            n_features=total_dims(variables),
+        )
+
+    @property
+    def n_cells(self) -> int:
+        return int(self.cell_idx.shape[0])
+
+
+def embed_cells(values: torch.Tensor, grid: GridMap) -> torch.Tensor:
+    """Scatter per-cell values into a dense padded grid.
+
+    values: (..., n_cells, F) -> (..., X, Y, Z, F).  Out-of-domain cells are
+    zero except fixed-value (Dirichlet) boundary cells, which get their
+    prescribed values.
+    """
+    X, Y, Z = grid.shape
+    F = values.shape[-1]
+    batch = values.shape[:-2]
+    flat = values.new_zeros((*batch, X * Y * Z, F))
+    flat[..., grid.cell_idx, :] = values
+    if grid.dirichlet_idx.numel():
+        flat[..., grid.dirichlet_idx, :] = grid.dirichlet_vals.to(values.dtype)
+    return flat.reshape(*batch, X, Y, Z, F)
+
+
+def gather_cells(x: torch.Tensor, grid: GridMap) -> torch.Tensor:
+    """Gather in-domain cell values: (..., X, Y, Z, F) -> (..., n_cells, F)."""
+    return ravel_grid(x).index_select(-2, grid.cell_idx)
+
+
+def ravel_grid(x: torch.Tensor) -> torch.Tensor:
+    """(..., X, Y, Z, F) -> (..., X*Y*Z, F)."""
+    *batch, X, Y, Z, F = x.shape
+    return x.reshape(*batch, X * Y * Z, F)
+
+
+def apply_inside(x: torch.Tensor, grid: GridMap) -> torch.Tensor:
+    """Zero out everything but the in-domain cells."""
+    return torch.where(grid.inside_mask[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def masked_mean(x: torch.Tensor, grid: GridMap, *, batch_ndim: int = 1) -> torch.Tensor:
+    """Mean over in-domain cells and channels, keeping leading batch axes:
+    (B..., X, Y, Z, F) -> (B...,)."""
+    mask = grid.inside_mask[..., None].to(x.dtype)
+    total = (x * mask).sum(dim=tuple(range(batch_ndim, x.ndim)))
+    return total / (grid.n_cells * x.shape[-1])

@@ -1,0 +1,396 @@
+"""Hand-written Hopper kernels of the fused ResnetBlock conv chain.
+
+``fused_double_conv_block`` is the ResnetBlock core without the residual:
+conv3x3x3 -> GroupNorm -> FiLM -> SiLU -> conv3x3x3 -> GroupNorm -> SiLU,
+with bf16 conv operands and f32 accumulation and statistics.  On a CUDA
+tensor it runs three kernel launches from ``csrc/fused_double_conv.cu``:
+
+1. ``conv3x3x3_stats``: the first conv, replicate padding by clamped
+   addressing, with per-block channel moments of the f32 result;
+2. ``conv3x3x3_stats_silu_in``: the second conv, applying the first
+   GroupNorm + FiLM + SiLU as ``silu(a*x + b)`` to its input as it loads it;
+3. ``affine_silu``: the second GroupNorm + SiLU, written in the input dtype.
+
+Between the launches ``_gn_affine`` folds the moments into per-(B, F) ``a, b``
+in a few f32 torch ops.  On a CPU tensor every wrapper takes its plain torch
+version instead; nothing falls back silently from a CUDA tensor.
+
+The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use into
+``build/kernels/`` (keyed by a hash of the sources and flags) and loaded with
+``ctypes``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# Launches per kernel since the last reset: each wrapper adds one where it
+# launches its kernel, and nowhere else.
+LAUNCH_COUNTS: Dict[str, int] = {
+    "conv3x3x3_stats": 0,
+    "conv3x3x3_stats_silu_in": 0,
+    "affine_silu": 0,
+}
+
+MIN_SPATIAL_FOR_FUSED_BLOCK = 64 * 24 * 24
+MAX_CHANNELS_FOR_FUSED_BLOCK = 160
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCH_COUNTS:
+        LAUNCH_COUNTS[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Build and load
+# ---------------------------------------------------------------------------
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return found
+
+
+def build_library() -> Path:
+    """Compile ``csrc/*.cu`` into one shared library unless it is built already.
+
+    The file name carries a hash of the sources and flags, so an edited
+    source rebuilds.  ``nvcc``'s output (``-Xptxas -v``: registers, shared
+    memory, spills per kernel) is kept beside it as ``.log``.
+    """
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC_DIR.glob("*.cu*")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    lib = BUILD_DIR / f"libgt_kernels_{digest.hexdigest()[:16]}.so"
+    if lib.is_file():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build_library()))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.gt_conv3x3x3_tile_m.argtypes = []
+        lib.gt_conv3x3x3_tile_m.restype = i
+        lib.gt_conv3x3x3_stats.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.gt_conv3x3x3_stats.restype = i
+        lib.gt_affine_silu.argtypes = [p, p, p, p, i, i, ctypes.c_longlong, i, p]
+        lib.gt_affine_silu.restype = i
+        _lib = lib
+    return _lib
+
+
+def _check_status(status: int, name: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {status}")
+
+
+def _require_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _require_hopper(device: torch.device) -> None:
+    major, minor = torch.cuda.get_device_capability(device)
+    if (major, minor) != (9, 0):
+        raise RuntimeError(
+            f"the kernels are built for sm_90a (Hopper); device has sm_{major}{minor}"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Kernel 1/2: conv3x3x3 with channel moments (+ optional silu(a*x+b) prologue)
+# ---------------------------------------------------------------------------
+
+
+def _spatial_bcast(v: torch.Tensor) -> torch.Tensor:
+    """(B, C) -> (B, 1, 1, 1, C)."""
+    return v[:, None, None, None, :]
+
+
+def _conv3x3x3_stats_plain(x, w, bias, act):
+    h = x
+    if act is not None:
+        a, b = act
+        h = F.silu(x.float() * _spatial_bcast(a) + _spatial_bcast(b)).to(torch.bfloat16)
+    # f32 conv over bf16 values: exact products, f32 accumulation.
+    hc = F.pad(h.float().permute(0, 4, 1, 2, 3), (1, 1, 1, 1, 1, 1), mode="replicate")
+    y = F.conv3d(hc, w.float().permute(4, 3, 0, 1, 2), bias.float())
+    y = y.permute(0, 2, 3, 4, 1)
+    sums = torch.stack([y.sum(dim=(1, 2, 3)), (y * y).sum(dim=(1, 2, 3))], dim=1)
+    return y.to(torch.bfloat16).contiguous(), sums
+
+
+def conv3x3x3_stats(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    bias: torch.Tensor,
+    act: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Replicate-padded SAME 3x3x3 conv + bias with channel moments.
+
+    x: (B, X, Y, Z, C) bf16; w: (3, 3, 3, C, F) bf16; bias: (F,) f32;
+    act: None, or per-(B, C) f32 ``(a, b)``, in which case the conv reads
+    ``silu(a*x + b)`` rounded to bf16 instead of x.
+    Returns (y (B, X, Y, Z, F) bf16, sums (B, 2, F) f32) with sums[:, 0] the
+    sum of the f32 conv output over all voxels and sums[:, 1] its sum of squares.
+    """
+    if not x.is_cuda:
+        return _conv3x3x3_stats_plain(x, w, bias, act)
+    B, X, Y, Z, C = x.shape
+    Fo = w.shape[-1]
+    _require_hopper(x.device)
+    _require_cuda_tensor(x, "x", torch.bfloat16, (B, X, Y, Z, C))
+    _require_cuda_tensor(w, "w", torch.bfloat16, (3, 3, 3, C, Fo))
+    _require_cuda_tensor(bias, "bias", torch.float32, (Fo,))
+    if act is not None:
+        for name, v in zip(("a", "b"), act):
+            _require_cuda_tensor(v, name, torch.float32, (B, C))
+    lib = _library()
+    tile_m = lib.gt_conv3x3x3_tile_m()
+    n_mt = -(-(X * Y * Z) // tile_m)
+    out = torch.empty((B, X, Y, Z, Fo), dtype=torch.bfloat16, device=x.device)
+    partial = torch.empty((B, n_mt, 2, Fo), dtype=torch.float32, device=x.device)
+    pa = act[0].data_ptr() if act is not None else None
+    pb = act[1].data_ptr() if act is not None else None
+    status = lib.gt_conv3x3x3_stats(
+        x.data_ptr(), w.data_ptr(), bias.data_ptr(), pa, pb,
+        out.data_ptr(), partial.data_ptr(), B, X, Y, Z, C, Fo,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    name = "conv3x3x3_stats" if act is None else "conv3x3x3_stats_silu_in"
+    _check_status(status, name)
+    LAUNCH_COUNTS[name] += 1
+    # Cross-block reduction in a fixed order (no atomics): runs repeat bit for bit.
+    return out, partial.sum(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3: affine_silu
+# ---------------------------------------------------------------------------
+
+
+def _affine_silu_plain(h, a, b, out_dtype):
+    return F.silu(h.float() * _spatial_bcast(a) + _spatial_bcast(b)).to(out_dtype)
+
+
+def affine_silu(
+    h: torch.Tensor, a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype
+) -> torch.Tensor:
+    """silu(a*h + b) with per-(B, F) f32 a, b over (B, X, Y, Z, F) bf16 h."""
+    if not h.is_cuda:
+        return _affine_silu_plain(h, a, b, out_dtype)
+    B, X, Y, Z, Fo = h.shape
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"affine_silu writes f32 or bf16, not {out_dtype}")
+    _require_cuda_tensor(h, "h", torch.bfloat16, (B, X, Y, Z, Fo))
+    _require_cuda_tensor(a, "a", torch.float32, (B, Fo))
+    _require_cuda_tensor(b, "b", torch.float32, (B, Fo))
+    lib = _library()
+    out = torch.empty(h.shape, dtype=out_dtype, device=h.device)
+    status = lib.gt_affine_silu(
+        h.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
+        int(out_dtype == torch.float32), B, X * Y * Z, Fo,
+        torch.cuda.current_stream(h.device).cuda_stream,
+    )
+    _check_status(status, "affine_silu")
+    LAUNCH_COUNTS["affine_silu"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The chain
+# ---------------------------------------------------------------------------
+
+
+def _gn_affine(sums, gamma, beta, scale, shift, *, count, num_groups, eps):
+    """Fold GroupNorm + FiLM into per-(B, F) ``a, b`` (f32 throughout):
+    a = inv*gamma*(scale+1), b = (beta - mean*inv*gamma)*(scale+1) + shift."""
+    B, _, Fo = sums.shape
+    G = num_groups
+    sg = sums[:, 0].reshape(B, G, Fo // G).sum(-1, keepdim=True)
+    ssg = sums[:, 1].reshape(B, G, Fo // G).sum(-1, keepdim=True)
+    n = count * (Fo // G)
+    mean = sg / n
+    # E[y^2] - E[y]^2 can cancel below zero in f32: clamp before rsqrt.
+    var = torch.clamp(ssg / n - mean * mean, min=0.0)
+    inv = torch.rsqrt(var + eps)
+    mean_c = mean.expand(B, G, Fo // G).reshape(B, Fo)
+    inv_c = inv.expand(B, G, Fo // G).reshape(B, Fo)
+    g = gamma.float()[None]
+    be = beta.float()[None]
+    if scale is None:
+        a = inv_c * g
+        b = be - mean_c * inv_c * g
+    else:
+        fs = scale.float() + 1.0
+        a = inv_c * g * fs
+        b = (be - mean_c * inv_c * g) * fs + shift.float()
+    return a.contiguous(), b.contiguous()
+
+
+def kernel_chain(
+    x, w1, b1, gamma1, beta1, scale, shift, w2, b2, gamma2, beta2, *, num_groups, eps
+):
+    """The chain as its three kernels plus the two folds (no autograd).
+
+    On CUDA tensors it launches the kernels; on CPU tensors each step takes
+    its plain version, which keeps the fold algebra testable there."""
+    B, X, Y, Z, _ = x.shape
+    count = X * Y * Z
+    bf = torch.bfloat16
+    h1, s1 = conv3x3x3_stats(x.to(bf).contiguous(), w1.to(bf).contiguous(), b1.float())
+    a1, c1 = _gn_affine(
+        s1, gamma1, beta1, scale, shift, count=count, num_groups=num_groups, eps=eps
+    )
+    h2, s2 = conv3x3x3_stats(h1, w2.to(bf).contiguous(), b2.float(), act=(a1, c1))
+    a2, c2 = _gn_affine(
+        s2, gamma2, beta2, None, None, count=count, num_groups=num_groups, eps=eps
+    )
+    return affine_silu(h2, a2, c2, x.dtype)
+
+
+def _conv3d_replicate(h, w):
+    """SAME 3x3x3 conv with replicate padding in h.dtype, without bias.
+    h: (B, X, Y, Z, C); w: (3, 3, 3, C, F) -> (B, X, Y, Z, F)."""
+    hc = F.pad(h.permute(0, 4, 1, 2, 3), (1, 1, 1, 1, 1, 1), mode="replicate")
+    y = F.conv3d(hc, w.to(h.dtype).permute(4, 3, 0, 1, 2))
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def reference_double_conv(
+    x, w1, b1, gamma1, beta1, scale, shift, w2, b2, gamma2, beta2, *, num_groups, eps
+):
+    """Plain torch version of the chain: conv in x.dtype, GroupNorm
+    statistics in f32, output in x.dtype (the numerics of the JAX package's
+    ``_reference_double_conv``)."""
+
+    def conv_gn_silu(h, w, b, gamma, beta, sc, sh):
+        y = _conv3d_replicate(h, w).float() + b.float()
+        B, X, Y, Z, Fo = y.shape
+        G = num_groups
+        yg = y.reshape(B, X, Y, Z, G, Fo // G)
+        var, mean = torch.var_mean(yg, dim=(1, 2, 3, 5), keepdim=True, correction=0)
+        yn = ((yg - mean) * torch.rsqrt(var + eps)).reshape(B, X, Y, Z, Fo)
+        yn = yn * gamma.float() + beta.float()
+        if sc is not None:
+            yn = (_spatial_bcast(sc.float()) + 1.0) * yn + _spatial_bcast(sh.float())
+        return F.silu(yn).to(x.dtype)
+
+    h = conv_gn_silu(x, w1, b1, gamma1, beta1, scale, shift)
+    return conv_gn_silu(h, w2, b2, gamma2, beta2, None, None)
+
+
+class _FusedDoubleConv(torch.autograd.Function):
+    """Forward: the kernels.  Backward: autograd of the plain chain."""
+
+    @staticmethod
+    def forward(ctx, num_groups, eps, *args):
+        ctx.num_groups, ctx.eps = num_groups, eps
+        ctx.save_for_backward(*args)
+        return kernel_chain(*args, num_groups=num_groups, eps=eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        args = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [a.detach().requires_grad_() if a is not None else None for a in args]
+            out = reference_double_conv(
+                *inputs, num_groups=ctx.num_groups, eps=ctx.eps
+            )
+            live = [i for i in inputs if i is not None]
+            grads = iter(torch.autograd.grad(out, live, grad, allow_unused=True))
+        return (None, None, *(next(grads) if i is not None else None for i in inputs))
+
+
+def fused_double_conv_block(
+    x, w1, b1, gamma1, beta1, scale, shift, w2, b2, gamma2, beta2,
+    num_groups: int = 8, eps: float = 1e-5,
+):
+    """The ResnetBlock core (both ConvBlocks, without the residual).
+
+    x: (B, X, Y, Z, C); w*: (3, 3, 3, C_in, F); b*, gamma*, beta*: (F,);
+    scale/shift: (B, F) FiLM vectors or None.  Returns (B, X, Y, Z, F) in
+    x.dtype.  A CUDA tensor runs the Hopper kernels (bf16 operands, f32
+    accumulation and statistics); a CPU tensor runs ``reference_double_conv``.
+    """
+    args = (x, w1, b1, gamma1, beta1, scale, shift, w2, b2, gamma2, beta2)
+    if not x.is_cuda:
+        return reference_double_conv(*args, num_groups=num_groups, eps=eps)
+    if x.dim() != 5:
+        raise ValueError(f"x must be (B, X, Y, Z, C), got shape {tuple(x.shape)}")
+    B, C = x.shape[0], x.shape[-1]
+    Fo = w1.shape[-1]
+    shapes = {
+        "w1": (w1, (3, 3, 3, C, Fo)), "b1": (b1, (Fo,)), "gamma1": (gamma1, (Fo,)),
+        "beta1": (beta1, (Fo,)), "w2": (w2, (3, 3, 3, Fo, Fo)), "b2": (b2, (Fo,)),
+        "gamma2": (gamma2, (Fo,)), "beta2": (beta2, (Fo,)),
+    }
+    if scale is not None:
+        shapes.update(scale=(scale, (B, Fo)), shift=(shift, (B, Fo)))
+    elif shift is not None:
+        raise ValueError("shift given without scale")
+    for name, (t, shape) in shapes.items():
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    if Fo % num_groups:
+        raise ValueError(f"{Fo} channels do not split into {num_groups} groups")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be f32 or bf16, got {x.dtype}")
+    return _FusedDoubleConv.apply(num_groups, eps, *args)
+
+
+def fused_block_applicable(x: torch.Tensor, c_in: int, features: int) -> bool:
+    """Envelope of ``fused_double_conv_block``: big grids and at most 160
+    channels, the JAX package's gate without its TPU/env-flag checks (the
+    caller checks for SiLU)."""
+    X, Y, Z = x.shape[-4:-1]
+    if X * Y * Z < MIN_SPATIAL_FOR_FUSED_BLOCK:
+        return False
+    return max(c_in, features) <= MAX_CHANNELS_FOR_FUSED_BLOCK
