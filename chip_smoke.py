@@ -7,17 +7,31 @@ Run from the repository root:  python3 chip_smoke.py
    torch/CUDA versions; fails without CUDA.  TF32 is switched off for
    cuDNN convolutions and matmuls so f32 references are full f32.
 2. Build: compiles the Hopper kernels from ``generative_turbulence_tpu_torch/
-   csrc`` with nvcc (into build/kernels/) and prints the seconds it took.
+   csrc`` with nvcc (one process per source, in parallel, into
+   build/kernels/) and prints the seconds it took.
 3. Kernel vs plain: the fused ResnetBlock chain against its plain torch
    version at the four block shapes the shapes-grid U-Net sends through it
    (batch 8, FiLM on, 8 groups) and one small ragged shape (1 group, no
    FiLM), plus each kernel against its own plain version; one backward.
-4. Main path: a synthetic shapes case (192x48x48 cells, padded 194x50x50)
-   built in memory, a seeded dim-32 4-level DenoisingModel in bf16, DDIM
-   with 10 steps and a 4-step ancestral run at batch 8 through
+3b. flash_attention against its plain version at the 2-level bottleneck's
+   shape (8, 4, 6912, 32), as the U-Net's strided qkv views, in bf16 and
+   f32, and at a ragged (2, 2, 2100, 16); second runs bit-equal; times.
+3c. conv3d_3x3 against its plain version at the u_net.down_0 shape
+   (8x194x50x50, 64->64), bf16 and f32 inputs; one backward; times.
+4. Main path, 4 levels: a synthetic shapes case (192x48x48 cells, padded
+   194x50x50) built in memory, a seeded dim-32 4-level DenoisingModel in
+   bf16, DDIM with 10 steps and a 4-step ancestral run at batch 8 through
    ``training.diffusion_task.sample``.  Checks shapes, finiteness, agreement
-   of one U-Net evaluation with the plain path, and that every launch
-   counter rose by exactly (U-Net evaluations x engaged blocks).
+   of one U-Net evaluation with the plain path, that every chain counter
+   rose by exactly (U-Net evaluations x engaged blocks), and that
+   flash_attention did not launch (108 bottleneck tokens).
+4b. Main path, 2 levels: the run configuration ``model.u_net_levels=2``
+   (bf16, DDIM-10) from ``parse_cli_overrides`` and the presets, a seeded
+   ``DiffusionTask`` on the same case; one DDIM-10 and one 4-step ancestral
+   call through ``DiffusionTask.sample``.  Checks shapes, finiteness, one
+   flash_attention launch per U-Net evaluation (6912 bottleneck tokens),
+   the chain counters, and one U-Net evaluation in bf16 and one with
+   ``eval_compute_dtype=float32`` against the same net with plain attention.
 5. Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 
 Any failure exits non-zero before the last line.
@@ -35,7 +49,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PALLAS = "generative_turbulence_tpu/ops/pallas_kernels.py"
 BF16_RTOL, BF16_ATOL, MIN_CORR = 0.06, 0.03, 0.999
-# (name, X, Y, Z, C_in, F) of the blocks the gate engages at the shapes grid
+F32_RTOL, F32_ATOL = 2e-4, 2e-5
+CHAIN_KERNELS = ("conv3x3x3_stats", "conv3x3x3_stats_silu_in", "affine_silu")
+# (name, X, Y, Z, C_in, F) of the blocks the gate engages at the shapes grid.
+# The 2-level net engages the same four (tests/test_torch_task.py): up_1 sees
+# 256 input channels and the centre blocks 48x12x12 voxels, outside the gate.
 ENGAGED_BLOCKS = [
     ("u_net.down_0", 194, 50, 50, 64, 64),
     ("u_net.down_1", 97, 25, 25, 64, 128),
@@ -45,6 +63,12 @@ ENGAGED_BLOCKS = [
 BATCH = 8
 DDIM_STEPS = 10
 DDPM_STEPS = 4
+# The bottleneck attention of the 2-level net at the shapes grid.
+FLASH_PATH_SHAPE = (BATCH, 4, 48 * 12 * 12, 32)
+TWO_LEVEL_OVERRIDES = [
+    "model.u_net_levels=2", "model.compute_dtype=bfloat16", "model.sampler=ddim",
+    f"model.ddim_steps={DDIM_STEPS}",
+]
 
 
 class SmokeFailure(RuntimeError):
@@ -97,6 +121,18 @@ def compare(torch, got, want, what: str) -> float:
     log(f"  {what}: max_abs_err {max_err!r} outside tol {bad} corr {corr!r}")
     check(bad == 0, f"{what}: {bad} elements outside rtol {BF16_RTOL} / atol {BF16_ATOL}")
     check(corr > MIN_CORR, f"{what}: correlation {corr} <= {MIN_CORR}")
+    return max_err
+
+
+def compare_f32(torch, got, want, what: str) -> float:
+    """f32 agreement: allclose(rtol 2e-4, atol 2e-5)."""
+    check(got.dtype == want.dtype == torch.float32, f"{what}: {got.dtype}, {want.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite kernel output")
+    err = (got - want).abs()
+    max_err = float(err.max())
+    bad = int((err > F32_ATOL + F32_RTOL * want.abs()).sum())
+    log(f"  {what}: max_abs_err {max_err!r} outside tol {bad}")
+    check(bad == 0, f"{what}: {bad} elements outside rtol {F32_RTOL} / atol {F32_ATOL}")
     return max_err
 
 
@@ -205,10 +241,128 @@ def kernel_phase(torch, ck):
     return block_rows, kernels
 
 
-def main_path_phase(torch, ck):
-    from generative_turbulence_tpu_torch.data.grid import GridMap
+def flash_phase(torch, ck):
+    log("[3b] flash_attention vs its plain version (TF32 off); second run bit-equal")
+    gen = torch.Generator().manual_seed(2)
+    B, H, N, D = FLASH_PATH_SHAPE
+    # The U-Net hands the kernel strided views of its (B, N, 3, H, D) qkv.
+    qkv = torch.randn(B, N, 3, H, D, generator=gen).cuda()
+    rows = {}
+    with torch.inference_mode():
+        cases = [
+            ("path bf16", torch.bfloat16, qkv.to(torch.bfloat16)),
+            ("path f32", torch.float32, qkv),
+        ]
+        for what, dtype, packed in cases:
+            q, k, v = (packed[:, :, i].transpose(1, 2) for i in range(3))
+            got = ck.flash_attention(q, k, v)
+            want = ck._flash_attention_plain(q, k, v)
+            torch.cuda.synchronize()
+            check(got.dtype == dtype and tuple(got.shape) == FLASH_PATH_SHAPE, f"{what}: {got.dtype} {tuple(got.shape)}")
+            label = f"flash_attention {what} {FLASH_PATH_SHAPE}"
+            err = compare(torch, got, want, label) if dtype == torch.bfloat16 else compare_f32(torch, got, want, label)
+            check(torch.equal(got, ck.flash_attention(q, k, v)), f"{what}: a second run differs")
+            ms = cuda_ms(torch, lambda: ck.flash_attention(q, k, v), 10)
+            plain = cuda_ms(torch, lambda: ck._flash_attention_plain(q, k, v), 5)
+            tflops = 4 * B * H * N * N * D / (ms * 1e-3) / 1e12
+            log(f"    kernel {ms!r} ms ({tflops!r} TFLOP/s), plain {plain!r} ms")
+            rows[dtype] = (err, ms, plain)
+            del got, want
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(2, 2, 2100, 16, generator=gen).to("cuda", dtype) for _ in range(3))
+            got = ck.flash_attention(q, k, v)
+            want = ck._flash_attention_plain(q, k, v)
+            torch.cuda.synchronize()
+            label = f"flash_attention ragged {dtype} (2, 2, 2100, 16)"
+            if dtype == torch.bfloat16:
+                compare(torch, got, want, label)
+            else:
+                compare_f32(torch, got, want, label)
+            check(torch.equal(got, ck.flash_attention(q, k, v)), f"{label}: a second run differs")
+    err, ms, plain = rows[torch.bfloat16]
+    f32_err, f32_ms, f32_plain = rows[torch.float32]
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "generative_turbulence_tpu_torch/csrc/flash_attention.cu",
+        "replaces": f"{PALLAS}:132", "launches": 0, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain, "shape": list(FLASH_PATH_SHAPE), "dtype": "bfloat16",
+        "f32_max_abs_err": f32_err, "f32_ms": f32_ms, "f32_plain_ms": f32_plain,
+    }
+
+
+def conv3d_phase(torch, ck):
+    log("[3c] conv3d_3x3 vs its plain version at u_net.down_0 (B=8, 194x50x50, 64->64)")
+    gen = torch.Generator().manual_seed(3)
+    _, X, Y, Z, C, F = ENGAGED_BLOCKS[0]
+    w = (torch.randn(3, 3, 3, C, F, generator=gen) * (27 * C) ** -0.5).cuda()
+    b = (0.1 * torch.randn(F, generator=gen)).cuda()
+    x32 = torch.randn(BATCH, X, Y, Z, C, generator=gen).cuda()
+    rows = {}
+    ck.reset_launch_counts()
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            x = x32.to(dtype)
+            got = ck.conv3d_3x3(x, w, b)
+            want = ck._conv3d_3x3_plain(x, w, b)
+            torch.cuda.synchronize()
+            check(got.dtype == dtype, f"conv3d_3x3: output {got.dtype} for {dtype} input")
+            # f32 output: the same bf16 products summed in f32 in another
+            # order; judged at the bf16 tolerance like the chain.
+            err = compare(torch, got, want, f"conv3d_3x3 {dtype}")
+            check(torch.equal(got, ck.conv3d_3x3(x, w, b)), f"conv3d_3x3 {dtype}: a second run differs")
+            ms = cuda_ms(torch, lambda: ck.conv3d_3x3(x, w, b), 10)
+            plain = cuda_ms(torch, lambda: ck._conv3d_3x3_plain(x, w, b), 10)
+            log(f"    kernel {ms!r} ms, plain {plain!r} ms")
+            rows[dtype] = (err, ms, plain)
+            del got, want
+    phase_launches = ck.LAUNCH_COUNTS["conv3d_3x3"]
+    check(phase_launches > 0, "conv3d_3x3 did not launch")
+    log("[3c] backward (autograd of the plain conv) at a small shape")
+    leaves = [t.requires_grad_() for t in (
+        torch.randn(1, 16, 12, 12, 8, generator=gen).cuda(),
+        (0.1 * torch.randn(3, 3, 3, 8, 8, generator=gen)).cuda(),
+        torch.randn(8, generator=gen).cuda(),
+    )]
+    (ck.conv3d_3x3(*leaves) ** 2).mean().backward()
+    for name, leaf in zip("xwb", leaves):
+        check(leaf.grad is not None and bool(torch.isfinite(leaf.grad).all()), f"conv3d_3x3: non-finite d{name}")
+        check(float(leaf.grad.abs().max()) > 0, f"conv3d_3x3: zero d{name}")
+    log("  gradients for x, w, b finite and non-zero")
+    err, ms, plain = rows[torch.bfloat16]
+    f32_err, f32_ms, f32_plain = rows[torch.float32]
+    return {
+        "name": "conv3d_3x3", "route": "cuda",
+        "source": "generative_turbulence_tpu_torch/csrc/fused_double_conv.cu",
+        "replaces": f"{PALLAS}:294", "also_replaces": f"{PALLAS}:251",
+        "launches": 0, "on_main_path": False, "kernel_phase_launches": phase_launches,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain, "dtype": "bfloat16",
+        "f32_max_abs_err": f32_err, "f32_ms": f32_ms, "f32_plain_ms": f32_plain,
+    }
+
+
+def shapes_case(torch):
+    """The in-memory shapes case: metadata, one frame of u, p as cells
+    (n_cells, 4), and its FieldStats (u, p, norm(u) over that frame)."""
+    import numpy as np
+
+    from generative_turbulence_tpu_torch.data.schema import FieldStats
     from generative_turbulence_tpu_torch.data.synthetic import build_case
     from generative_turbulence_tpu_torch.data.variables import Variable, stack_channels
+
+    meta, fields = build_case(cell_counts=(192, 48, 48), n_frames=1, seed=0)
+    frame = stack_channels(fields, (Variable.U, Variable.P))[0]
+    u = fields[Variable.U].reshape(-1, 3)
+    stats = {}
+    for key, values in (("u", u), ("p", fields[Variable.P].reshape(-1, 1)),
+                        ("norm(u)", np.linalg.norm(u, axis=-1, keepdims=True))):
+        stats[key] = {name: fn(values, axis=0).astype(np.float32) for name, fn in
+                      (("min", np.min), ("max", np.max), ("mean", np.mean), ("std", np.std))}
+    return meta, frame, FieldStats(stats)
+
+
+def main_path_phase(torch, ck):
+    from generative_turbulence_tpu_torch.data.grid import GridMap
+    from generative_turbulence_tpu_torch.data.variables import Variable
     from generative_turbulence_tpu_torch.diffusion.gaussian import GaussianDiffusion, GeneratorNoise
     from generative_turbulence_tpu_torch.models.conditioning import Conditioning
     from generative_turbulence_tpu_torch.models.normalization import Normalizer
@@ -218,8 +372,7 @@ def main_path_phase(torch, ck):
     log("[4] main path: shapes case 192x48x48 (padded 194x50x50), dim 32, 4 levels, T=500, bf16")
     tic = time.perf_counter()
     variables = (Variable.U, Variable.P)
-    meta, fields = build_case(cell_counts=(192, 48, 48), n_frames=1, seed=0)
-    frame = stack_channels(fields, variables)[0]  # (n_cells, 4)
+    meta, frame, _ = shapes_case(torch)  # frame: (n_cells, 4)
     normalizer = Normalizer(mean=frame.mean(axis=0), std=frame.std(axis=0))
     grid = GridMap.from_metadata(meta, variables, device="cuda")
     cells = torch.as_tensor(frame, device="cuda").expand(BATCH, *frame.shape).contiguous()
@@ -260,10 +413,13 @@ def main_path_phase(torch, ck):
         check(bool(torch.isfinite(out).all()), f"{name}: non-finite samples")
         log(f"  {name} samples: shape {tuple(out.shape)}, finite, mean {out.mean(dim=(0, 1)).tolist()}")
     expected = n_evals * len(ENGAGED_BLOCKS)
-    log(f"  launches over the sampler calls: {launches} (expect {expected} each, "
-        f"{3 * expected} in all = 3 x {len(ENGAGED_BLOCKS)} blocks x {n_evals} U-Net evaluations)")
-    for name, count in launches.items():
-        check(count == expected, f"{name}: {count} launches, expected {expected}")
+    log(f"  launches over the sampler calls: {launches} (expect {expected} for each chain "
+        f"kernel, {3 * expected} in all = 3 x {len(ENGAGED_BLOCKS)} blocks x {n_evals} U-Net "
+        "evaluations; no flash_attention at 108 bottleneck tokens, no conv3d_3x3)")
+    for name in CHAIN_KERNELS:
+        check(launches[name] == expected, f"{name}: {launches[name]} launches, expected {expected}")
+    for name in ("flash_attention", "conv3d_3x3"):
+        check(launches[name] == 0, f"{name}: {launches[name]} launches on the 4-level path")
 
     # One U-Net evaluation: timing, and agreement with the plain (unfused) path.
     with torch.inference_mode():
@@ -281,6 +437,86 @@ def main_path_phase(torch, ck):
     log(f"  U-Net output vs plain path (scaled by max |out| = {scale!r}):")
     compare(torch, got / scale, want / scale, "U-Net forward")
     return launches, {"fwd_ms": fwd_ms, "plain_fwd_ms": plain_ms, **timings}
+
+
+def two_level_phase(torch, ck):
+    from generative_turbulence_tpu_torch.data.grid import GridMap
+    from generative_turbulence_tpu_torch.diffusion.gaussian import GeneratorNoise
+    from generative_turbulence_tpu_torch.ops import attention
+    from generative_turbulence_tpu_torch.training.config import parse_cli_overrides
+    from generative_turbulence_tpu_torch.training.diffusion_task import DiffusionTask
+
+    log(f"[4b] main path, 2 levels: {' '.join(TWO_LEVEL_OVERRIDES)}; shapes case, batch {BATCH}")
+    tic = time.perf_counter()
+    cfg = parse_cli_overrides(TWO_LEVEL_OVERRIDES).resolved()
+    meta, frame, stats = shapes_case(torch)
+    task = DiffusionTask(cfg.model, stats, "cuda")
+    task.net.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    grid = GridMap.from_metadata(meta, task.variables, device="cuda")
+    cells = torch.as_tensor(frame, device="cuda").expand(BATCH, *frame.shape).contiguous()
+    model = task.eval_net
+    log(f"  set-up {time.perf_counter() - tic!r} s; dim {cfg.model.dim}, {cfg.model.u_net_levels} "
+        f"levels, T={cfg.model.timesteps}, compute {cfg.model.compute_dtype}")
+    x = torch.randn(BATCH, *grid.shape, 4, generator=torch.Generator().manual_seed(1)).cuda()
+    t = torch.full((BATCH,), 250, dtype=torch.long, device="cuda")
+    with torch.inference_mode():
+        model(x, t, grid.cell_types)  # warm-up: cuDNN plans, allocator
+        torch.cuda.synchronize()
+
+    ck.reset_launch_counts()
+    timings, outputs = {}, {}
+    runs = [("ddim", None, DDIM_STEPS), ("ddpm", DDPM_STEPS, DDPM_STEPS)]
+    for sampler, start_from, _ in runs:
+        task.cfg.sampler = sampler  # the task follows cfg.sampler at call time
+        noise = GeneratorNoise(torch.Generator(device="cuda").manual_seed(0), "cuda")
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        outputs[sampler] = task.sample(cells, grid, noise, start_from=start_from)
+        torch.cuda.synchronize()
+        timings[f"two_level_{sampler}"] = time.perf_counter() - tic
+    task.cfg.sampler = cfg.model.sampler
+    launches = dict(ck.LAUNCH_COUNTS)
+    n_evals = sum(r[2] for r in runs)
+    for sampler, _, steps in runs:
+        s = timings[f"two_level_{sampler}"]
+        log(f"  {sampler}: {s!r} s per sampler call ({steps} U-Net evaluations, {s / steps!r} s each)")
+    for name, out in outputs.items():
+        check(tuple(out.shape) == (BATCH, grid.n_cells, 4), f"{name}: shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite samples")
+        log(f"  {name} samples: shape {tuple(out.shape)}, finite, mean {out.mean(dim=(0, 1)).tolist()}")
+    expected = n_evals * len(ENGAGED_BLOCKS)
+    log(f"  launches over the sampler calls: {launches} (expect flash_attention {n_evals} = 1 per "
+        f"U-Net evaluation, {expected} for each chain kernel = {len(ENGAGED_BLOCKS)} blocks x {n_evals})")
+    check(launches["flash_attention"] == n_evals,
+          f"flash_attention: {launches['flash_attention']} launches, expected {n_evals}")
+    for name in CHAIN_KERNELS:
+        check(launches[name] == expected, f"{name}: {launches[name]} launches, expected {expected}")
+    check(launches["conv3d_3x3"] == 0, "conv3d_3x3 launched on the 2-level path")
+
+    # One U-Net evaluation in bf16 and one with eval_compute_dtype=float32,
+    # each against the same net with the plain attention.
+    f32_cfg = parse_cli_overrides(TWO_LEVEL_OVERRIDES + ["model.eval_compute_dtype=float32"])
+    f32_task = DiffusionTask(f32_cfg.model, stats, "cuda")
+    f32_task.net.load_state_dict(task.net.state_dict())
+    for label, net in (("bf16", model), ("f32", f32_task.eval_net)):
+        with torch.inference_mode():
+            fwd_ms = cuda_ms(torch, lambda: net(x, t, grid.cell_types), 5)
+            got = net(x, t, grid.cell_types)
+            saved = attention.FLASH_MIN_TOKENS
+            attention.FLASH_MIN_TOKENS = 1 << 62  # the plain einsum attention
+            try:
+                plain_ms = cuda_ms(torch, lambda: net(x, t, grid.cell_types), 5)
+                want = net(x, t, grid.cell_types)
+            finally:
+                attention.FLASH_MIN_TOKENS = saved
+        log(f"  U-Net evaluation (B={BATCH}, {label}): {fwd_ms!r} ms with flash_attention, "
+            f"{plain_ms!r} ms with the plain attention")
+        scale = float(want.abs().max())
+        compare(torch, got / scale, want / scale, f"2-level U-Net {label} vs plain attention (scaled by {scale!r})")
+        timings[f"two_level_fwd_ms_{label}"] = fwd_ms
+        timings[f"two_level_plain_attention_fwd_ms_{label}"] = plain_ms
+        del got, want
+    return launches, timings
 
 
 def main() -> int:
@@ -313,12 +549,20 @@ def main() -> int:
 
     try:
         block_rows, kernels = kernel_phase(torch, ck)
-        launches, timings = main_path_phase(torch, ck)
+        kernels.append(flash_phase(torch, ck))
+        kernels.append(conv3d_phase(torch, ck))
+        launches4, timings = main_path_phase(torch, ck)
+        launches2, timings2 = two_level_phase(torch, ck)
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1
+    timings.update(timings2)
+    # Launches on the main paths (the 4-level and the 2-level runs), each
+    # counted from 0 just before the path's sampler calls.
     for entry in kernels:
-        entry["launches"] = launches[entry["name"]]
+        name = entry["name"]
+        entry["launches"] = launches4[name] + launches2[name]
+        entry["launches_by_path"] = {"4_levels": launches4[name], "2_levels": launches2[name]}
     log(f"[5] card: {smi}")
     print(json.dumps({"blocks": block_rows, "main_path": timings}))
     print(json.dumps({"kernels": kernels}))

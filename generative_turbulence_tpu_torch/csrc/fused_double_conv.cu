@@ -10,6 +10,10 @@
 //                                                            conv3x3x3_stats_kernel
 //   - _affine_silu_std (_affine_silu_std_kernel)          -> affine_silu_kernel
 // The GroupNorm + FiLM fold between them (_gn_affine) stays a few small torch ops.
+// The same conv kernel with STATS = false replaces the standalone conv op
+// conv3d_3x3 (_conv3d_3x3_pallas_raw, _conv3x3_kernel, and its _pad_flatten
+// prep): no moments epilogue and no partials buffer, x read as bf16 or f32
+// and rounded to bf16 at load, the f32 accumulator + bias written in x's type.
 //
 // What bounds them on the card.  At the engaged blocks (C, F in {32, 64, 128}
 // over 194x50x50 or 97x25x25 voxels, batch 8) one conv is 0.2-1.7 TFLOP
@@ -25,9 +29,10 @@
 // the input coordinate, so there is no pad pass and no halo copy; the
 // optional prologue applies silu(a*x + b) to every loaded element, which is
 // exact at the edges because clamping commutes with an elementwise map.  The
-// epilogue writes bf16 output and each block's per-channel sum and sum of
-// squares of the f32 result; blocks run in no order, so the cross-block
-// GroupNorm reduction is a second pass in torch with a fixed summation order.
+// epilogue writes bf16 output and (STATS) each block's per-channel sum and
+// sum of squares of the f32 result; blocks run in no order, so the
+// cross-block GroupNorm reduction is a second pass in torch with a fixed
+// summation order.
 // This is the simple first form: one smem stage, no cp.async/TMA/wgmma.
 // affine_silu is one grid-stride elementwise pass.
 //
@@ -66,17 +71,43 @@ __device__ __forceinline__ int clampi(int v, int hi) {
   return v < 0 ? 0 : (v > hi ? hi : v);
 }
 
+__device__ __forceinline__ bf16 to_bf16(bf16 v) { return v; }
+__device__ __forceinline__ bf16 to_bf16(float v) { return __float2bfloat16(v); }
+
+// Eight consecutive channels (16-byte aligned) as bf16.
+__device__ __forceinline__ void load8(const bf16* p, bf16 (&v)[8]) {
+  *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ void load8(const float* p, bf16 (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = __float2bfloat16(a.x); v[1] = __float2bfloat16(a.y);
+  v[2] = __float2bfloat16(a.z); v[3] = __float2bfloat16(a.w);
+  v[4] = __float2bfloat16(b.x); v[5] = __float2bfloat16(b.y);
+  v[6] = __float2bfloat16(b.z); v[7] = __float2bfloat16(b.w);
+}
+
+template <typename Out>
+__device__ __forceinline__ Out from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_float<bf16>(float v) { return __float2bfloat16(v); }
+
 // One block: BM consecutive output voxels of one batch element x BN output
 // channels.  grid = (ceil(S / BM), ceil(F / BN), B) with S = X*Y*Z.
-template <int BN, bool SILU_IN>
+// STATS: write the per-block channel moments (the chain's convs); without it
+// the kernel is the plain conv + bias (conv3d_3x3).  In: x's type, rounded to
+// bf16 at load; Out: the output's type.
+template <int BN, bool SILU_IN, bool STATS, typename In, typename Out>
 __global__ void __launch_bounds__(THREADS)
-conv3x3x3_stats_kernel(const bf16* __restrict__ x,      // (B, X, Y, Z, C)
+conv3x3x3_stats_kernel(const In* __restrict__ x,        // (B, X, Y, Z, C)
                        const bf16* __restrict__ w,      // (3, 3, 3, C, F)
                        const float* __restrict__ bias,  // (F,)
                        const float* __restrict__ pro_a, // (B, C) if SILU_IN
                        const float* __restrict__ pro_b, // (B, C) if SILU_IN
-                       bf16* __restrict__ out,          // (B, X, Y, Z, F)
-                       float* __restrict__ stats,       // (B, n_mt, 2, F)
+                       Out* __restrict__ out,           // (B, X, Y, Z, F)
+                       float* __restrict__ stats,       // (B, n_mt, 2, F) if STATS
                        int X, int Y, int Z, int C, int F) {
   using T = Tile<BN>;
   __shared__ __align__(128) unsigned char smem[T::BYTES];
@@ -96,7 +127,7 @@ conv3x3x3_stats_kernel(const bf16* __restrict__ x,      // (B, X, Y, Z, C)
   const bool c_vec = (C % 8) == 0;
   const bool f_vec = (F % 8) == 0;
 
-  const bf16* xb = x + (int64_t)b * S * C;
+  const In* xb = x + (int64_t)b * S * C;
 
   // A loader: rows r and r + 32, 8 channels starting at 8 * q of the K step.
   const int q = tid & 3;
@@ -116,7 +147,7 @@ conv3x3x3_stats_kernel(const bf16* __restrict__ x,      // (B, X, Y, Z, C)
 
   for (int tap = 0; tap < 27; ++tap) {
     const int dx = tap / 9 - 1, dy = (tap / 3) % 3 - 1, dz = tap % 3 - 1;
-    const bf16* src[2];
+    const In* src[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int xs = clampi(rx[i] + dx, X - 1);
@@ -131,11 +162,11 @@ conv3x3x3_stats_kernel(const bf16* __restrict__ x,      // (B, X, Y, Z, C)
       for (int i = 0; i < 2; ++i) {
         alignas(16) bf16 v[8];
         if (c_vec && c + 8 <= C) {
-          *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(src[i] + c);
+          load8(src[i] + c, v);
         } else {
 #pragma unroll
           for (int j = 0; j < 8; ++j)
-            v[j] = (c + j < C) ? src[i][c + j] : __float2bfloat16(0.0f);
+            v[j] = (c + j < C) ? to_bf16(src[i][c + j]) : __float2bfloat16(0.0f);
         }
         if (SILU_IN) {
 #pragma unroll
@@ -192,7 +223,7 @@ conv3x3x3_stats_kernel(const bf16* __restrict__ x,      // (B, X, Y, Z, C)
     }
   }
 
-  // ---- epilogue: bias, bf16 store, per-block channel moments ----
+  // ---- epilogue: bias, store in Out, per-block channel moments (STATS) ----
 #pragma unroll
   for (int j = 0; j < BN / 16; ++j)
     wmma::store_matrix_sync(Cs + (16 * warp) * T::C_LD + 16 * j, acc[j], T::C_LD,
@@ -202,9 +233,10 @@ conv3x3x3_stats_kernel(const bf16* __restrict__ x,      // (B, X, Y, Z, C)
     const int r = idx / BN, cc = idx % BN;
     const int n = n0 + cc, m = m0 + r;
     float v = Cs[r * T::C_LD + cc] + (n < F ? bias[n] : 0.0f);
-    Cs[r * T::C_LD + cc] = v;
-    if (m < S && n < F) out[((int64_t)b * S + m) * F + n] = __float2bfloat16(v);
+    if (STATS) Cs[r * T::C_LD + cc] = v;
+    if (m < S && n < F) out[((int64_t)b * S + m) * F + n] = from_float<Out>(v);
   }
+  if (!STATS) return;
   __syncthreads();
   const int rows = (S - m0) < BM ? (S - m0) : BM;
   for (int cc = tid; cc < BN; cc += THREADS) {
@@ -222,13 +254,6 @@ conv3x3x3_stats_kernel(const bf16* __restrict__ x,      // (B, X, Y, Z, C)
   }
 }
 
-template <typename Out>
-__device__ __forceinline__ Out from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float v) { return __float2bfloat16(v); }
-
 // out = silu(a[b, f] * h + c[b, f]) over (B, S, F), written in Out.
 template <typename Out>
 __global__ void affine_silu_kernel(const bf16* __restrict__ h,
@@ -244,25 +269,33 @@ __global__ void affine_silu_kernel(const bf16* __restrict__ h,
   }
 }
 
-template <int BN>
+template <int BN, bool SILU_IN, bool STATS, typename In, typename Out>
 void launch_conv(const void* x, const void* w, const void* bias, const void* pro_a,
                  const void* pro_b, void* out, void* stats, int B, int X, int Y,
                  int Z, int C, int F, cudaStream_t stream) {
   const int S = X * Y * Z;
   dim3 grid((S + BM - 1) / BM, (F + BN - 1) / BN, B);
-  auto* xp = static_cast<const bf16*>(x);
-  auto* wp = static_cast<const bf16*>(w);
-  auto* bp = static_cast<const float*>(bias);
-  auto* ap = static_cast<const float*>(pro_a);
-  auto* cp = static_cast<const float*>(pro_b);
-  auto* op = static_cast<bf16*>(out);
-  auto* sp = static_cast<float*>(stats);
-  if (pro_a != nullptr)
-    conv3x3x3_stats_kernel<BN, true><<<grid, THREADS, 0, stream>>>(
-        xp, wp, bp, ap, cp, op, sp, X, Y, Z, C, F);
+  conv3x3x3_stats_kernel<BN, SILU_IN, STATS, In, Out><<<grid, THREADS, 0, stream>>>(
+      static_cast<const In*>(x), static_cast<const bf16*>(w),
+      static_cast<const float*>(bias), static_cast<const float*>(pro_a),
+      static_cast<const float*>(pro_b), static_cast<Out*>(out),
+      static_cast<float*>(stats), X, Y, Z, C, F);
+}
+
+// The output-channel tile BN follows F: 32, 64 or 128.
+template <bool SILU_IN, bool STATS, typename In, typename Out>
+void launch_conv_bn(const void* x, const void* w, const void* bias, const void* pro_a,
+                    const void* pro_b, void* out, void* stats, int B, int X, int Y,
+                    int Z, int C, int F, cudaStream_t s) {
+  if (F <= 32)
+    launch_conv<32, SILU_IN, STATS, In, Out>(x, w, bias, pro_a, pro_b, out, stats, B,
+                                             X, Y, Z, C, F, s);
+  else if (F <= 64)
+    launch_conv<64, SILU_IN, STATS, In, Out>(x, w, bias, pro_a, pro_b, out, stats, B,
+                                             X, Y, Z, C, F, s);
   else
-    conv3x3x3_stats_kernel<BN, false><<<grid, THREADS, 0, stream>>>(
-        xp, wp, bp, ap, cp, op, sp, X, Y, Z, C, F);
+    launch_conv<128, SILU_IN, STATS, In, Out>(x, w, bias, pro_a, pro_b, out, stats, B,
+                                              X, Y, Z, C, F, s);
 }
 
 }  // namespace
@@ -278,12 +311,28 @@ extern "C" int gt_conv3x3x3_stats(const void* x, const void* w, const void* bias
                                   int F, void* stream) {
   cudaGetLastError();  // start from a clean error state
   auto s = static_cast<cudaStream_t>(stream);
-  if (F <= 32)
-    launch_conv<32>(x, w, bias, pro_a, pro_b, out, stats, B, X, Y, Z, C, F, s);
-  else if (F <= 64)
-    launch_conv<64>(x, w, bias, pro_a, pro_b, out, stats, B, X, Y, Z, C, F, s);
+  if (pro_a != nullptr)
+    launch_conv_bn<true, true, bf16, bf16>(x, w, bias, pro_a, pro_b, out, stats, B, X,
+                                           Y, Z, C, F, s);
   else
-    launch_conv<128>(x, w, bias, pro_a, pro_b, out, stats, B, X, Y, Z, C, F, s);
+    launch_conv_bn<false, true, bf16, bf16>(x, w, bias, pro_a, pro_b, out, stats, B, X,
+                                            Y, Z, C, F, s);
+  return (int)cudaGetLastError();
+}
+
+// Replicate-padded SAME 3x3x3 conv + bias without moments (conv3d_3x3).
+// x_f32 != 0: x and out are f32, else bf16; w: (3, 3, 3, C, F) bf16; bias: (F,) f32.
+extern "C" int gt_conv3d_3x3(const void* x, const void* w, const void* bias, void* out,
+                             int x_f32, int B, int X, int Y, int Z, int C, int F,
+                             void* stream) {
+  cudaGetLastError();
+  auto s = static_cast<cudaStream_t>(stream);
+  if (x_f32)
+    launch_conv_bn<false, false, float, float>(x, w, bias, nullptr, nullptr, out,
+                                               nullptr, B, X, Y, Z, C, F, s);
+  else
+    launch_conv_bn<false, false, bf16, bf16>(x, w, bias, nullptr, nullptr, out,
+                                             nullptr, B, X, Y, Z, C, F, s);
   return (int)cudaGetLastError();
 }
 

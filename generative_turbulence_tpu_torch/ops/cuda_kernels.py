@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels of the fused ResnetBlock conv chain.
+"""Hand-written Hopper kernels: the fused ResnetBlock conv chain, the
+standalone ``conv3d_3x3`` op and ``flash_attention``.
 
 ``fused_double_conv_block`` is the ResnetBlock core without the residual:
 conv3x3x3 -> GroupNorm -> FiLM -> SiLU -> conv3x3x3 -> GroupNorm -> SiLU,
@@ -15,9 +16,18 @@ Between the launches ``_gn_affine`` folds the moments into per-(B, F) ``a, b``
 in a few f32 torch ops.  On a CPU tensor every wrapper takes its plain torch
 version instead; nothing falls back silently from a CUDA tensor.
 
+``conv3d_3x3`` is the first kernel's conv without the moments epilogue
+(replicate-padded SAME 3x3x3 conv + bias, bf16 operands, f32 accumulation,
+output in x's type); its backward is autograd of the plain conv.  No model
+code calls it, as in the JAX package.  ``flash_attention`` is softmax
+attention over (B, H, N, D) tokens with the online softmax inside one kernel
+(``csrc/flash_attention.cu``); ``ops.attention.multihead_attention`` takes it
+from ``FLASH_MIN_TOKENS`` tokens up.
+
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use into
-``build/kernels/`` (keyed by a hash of the sources and flags) and loaded with
-``ctypes``.
+``build/kernels/`` (one ``nvcc`` per source, all started together, then one
+link; the library is keyed by a hash of the sources and flags) and loaded
+with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -35,10 +45,8 @@ import torch.nn.functional as F
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Launches per kernel since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else.
@@ -46,6 +54,8 @@ LAUNCH_COUNTS: Dict[str, int] = {
     "conv3x3x3_stats": 0,
     "conv3x3x3_stats_silu_in": 0,
     "affine_silu": 0,
+    "conv3d_3x3": 0,
+    "flash_attention": 0,
 }
 
 MIN_SPATIAL_FOR_FUSED_BLOCK = 64 * 24 * 24
@@ -78,9 +88,11 @@ def _nvcc() -> str:
 def build_library() -> Path:
     """Compile ``csrc/*.cu`` into one shared library unless it is built already.
 
-    The file name carries a hash of the sources and flags, so an edited
-    source rebuilds.  ``nvcc``'s output (``-Xptxas -v``: registers, shared
-    memory, spills per kernel) is kept beside it as ``.log``.
+    Each source compiles in its own ``nvcc`` process, all started together,
+    and one more ``nvcc`` links the objects.  The file name carries a hash of
+    the sources and flags, so an edited source rebuilds.  ``nvcc``'s output
+    (``-Xptxas -v``: registers, shared memory, spills per kernel) is kept
+    beside it as ``.log``.
     """
     sources = sorted(CSRC_DIR.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -91,12 +103,32 @@ def build_library() -> Path:
     if lib.is_file():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    logs = [obj.with_suffix(".log") for obj in objs]
+    procs = []
+    for src, obj, log in zip(sources, objs, logs):
+        with open(log, "w") as out:
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs.append(subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT))
+    codes = [proc.wait() for proc in procs]
+    text = "".join(f"== {src.name}\n{log.read_text()}" for src, log in zip(sources, logs))
+    for log in logs:
+        log.unlink()
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    if not any(codes):
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *(str(o) for o in objs)],
+            capture_output=True, text=True,
+        )
+        text += f"== link\n{link.stdout}{link.stderr}"
+        codes.append(link.returncode)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    lib.with_suffix(".log").write_text(text)
+    if any(codes):
+        raise RuntimeError(f"nvcc failed ({codes}):\n{text}")
     os.replace(tmp, lib)
     return lib
 
@@ -112,6 +144,11 @@ def _library() -> ctypes.CDLL:
         lib.gt_conv3x3x3_stats.restype = i
         lib.gt_affine_silu.argtypes = [p, p, p, p, i, i, ctypes.c_longlong, i, p]
         lib.gt_affine_silu.restype = i
+        lib.gt_conv3d_3x3.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.gt_conv3d_3x3.restype = i
+        ll = ctypes.c_longlong
+        lib.gt_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, *([ll] * 9), p]
+        lib.gt_flash_attention.restype = i
         _lib = lib
     return _lib
 
@@ -239,6 +276,138 @@ def affine_silu(
     )
     _check_status(status, "affine_silu")
     LAUNCH_COUNTS["affine_silu"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel 4: conv3d_3x3 (the conv kernel without moments)
+# ---------------------------------------------------------------------------
+
+
+def _conv3d_3x3_plain(x, w, b):
+    """f32 conv over the bf16-rounded x and w, plus bias, in x's type."""
+    bf = torch.bfloat16
+    y = _conv3d_replicate(x.to(bf).float(), w.to(bf).float()) + b.float()
+    return y.to(x.dtype)
+
+
+def _conv3d_3x3_kernel(x, w, b):
+    B, X, Y, Z, C = x.shape
+    Fo = w.shape[-1]
+    _require_hopper(x.device)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be f32 or bf16, got {x.dtype}")
+    _require_cuda_tensor(x, "x", x.dtype, (B, X, Y, Z, C))
+    if tuple(w.shape) != (3, 3, 3, C, Fo) or tuple(b.shape) != (Fo,):
+        raise ValueError(
+            f"w must be (3, 3, 3, {C}, F) and b (F,), got {tuple(w.shape)}, {tuple(b.shape)}"
+        )
+    wb = w.to(device=x.device, dtype=torch.bfloat16).contiguous()
+    bb = b.to(device=x.device, dtype=torch.float32).contiguous()
+    lib = _library()
+    out = torch.empty((B, X, Y, Z, Fo), dtype=x.dtype, device=x.device)
+    status = lib.gt_conv3d_3x3(
+        x.data_ptr(), wb.data_ptr(), bb.data_ptr(), out.data_ptr(),
+        int(x.dtype == torch.float32), B, X, Y, Z, C, Fo,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _check_status(status, "conv3d_3x3")
+    LAUNCH_COUNTS["conv3d_3x3"] += 1
+    return out
+
+
+class _Conv3d3x3(torch.autograd.Function):
+    """Forward: the kernel (its plain version on a CPU tensor).  Backward:
+    autograd of the plain conv in the inputs' types, with a zero bias, as the
+    JAX package's ``_conv3d_3x3_bwd`` takes the XLA conv's gradients."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        if not x.is_cuda:
+            return _conv3d_3x3_plain(x, w, b)
+        return _conv3d_3x3_kernel(x, w, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        with torch.enable_grad():
+            xi, wi = x.detach().requires_grad_(), w.detach().requires_grad_()
+            bi = torch.zeros(w.shape[-1], dtype=x.dtype, device=x.device, requires_grad=True)
+            y = _conv3d_replicate(xi, wi) + bi
+            return torch.autograd.grad(y, (xi, wi, bi), grad.to(y.dtype))
+
+
+def conv3d_3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Replicate-padded SAME 3x3x3 conv + bias.
+
+    x: (B, X, Y, Z, C) f32 or bf16; w: (3, 3, 3, C, F); b: (F,).  Returns
+    (B, X, Y, Z, F) in x's type: bf16 operands, f32 accumulation.  A CUDA
+    tensor runs the Hopper kernel; a CPU tensor runs ``_conv3d_3x3_plain``.
+    Differentiable in x, w and b.
+    """
+    return _Conv3d3x3.apply(x, w, b)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 5: flash_attention
+# ---------------------------------------------------------------------------
+
+
+def _flash_attention_plain(q, k, v):
+    """Scores and softmax in f32, output in q's type."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bhnd,bhmd->bhnm", q.float(), k.float()) * scale
+    weights = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhnm,bhmd->bhnd", weights, v.float()).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D)) v over q, k, v (B, H, N, D) -> (B, H, N, D).
+
+    A CUDA tensor runs the Hopper kernel: f32 or bf16 (all three alike), D a
+    multiple of 8 up to 128.  The kernel reads the inputs through their
+    batch, head and token strides, so views such as the U-Net's
+    ``qkv[:, :, i].transpose(1, 2)`` need no copy; the last stride must be 1
+    and every pointer and stride 16-byte aligned.  The output is contiguous,
+    in q's type.  A CPU tensor runs ``_flash_attention_plain``.
+    """
+    if not q.is_cuda:
+        return _flash_attention_plain(q, k, v)
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B, H, N, D), got shape {tuple(q.shape)}")
+    B, H, N, D = q.shape
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_attention takes f32 or bf16, got {q.dtype}")
+    if D % 8 or not 8 <= D <= 128:
+        raise ValueError(f"flash_attention takes D a multiple of 8 up to 128, got {D}")
+    if B * H > 65535:
+        raise ValueError(f"B * H = {B * H} exceeds the grid's 65535 rows")
+    _require_hopper(q.device)
+    strides = []
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != q.dtype or tuple(t.shape) != (B, H, N, D):
+            raise ValueError(
+                f"{name} must be a {q.dtype} tensor of shape {(B, H, N, D)} on {q.device}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must have unit stride in D, got {t.stride()}")
+        per16 = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(
+            s % per16 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1
+        ):
+            raise ValueError(f"{name}: pointer and strides must be 16-byte aligned, got {t.stride()}")
+        strides += [t.stride(0), t.stride(1), t.stride(2)]
+    lib = _library()
+    out = torch.empty((B, H, N, D), dtype=q.dtype, device=q.device)
+    status = lib.gt_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.float32), B, H, N, D, *strides,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _check_status(status, "flash_attention")
+    LAUNCH_COUNTS["flash_attention"] += 1
     return out
 
 

@@ -1,0 +1,149 @@
+"""The Hopper kernels on the card, each against its plain torch version,
+with the launch counts (marker ``gpu``; every test skips without CUDA).
+
+This file imports neither JAX nor the JAX package, since the card's machine
+has neither; run it there without the JAX-pinning conftest:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from generative_turbulence_tpu_torch.ops import cuda_kernels as ck
+
+F32_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_pallas_kernels.py:29
+BF16_TOL = dict(rtol=0.06, atol=0.03)  # tests/test_pallas_kernels.py:132
+
+
+def _make_args(B=2, X=8, Y=6, Z=6, C=12, F=16, film=True, seed=0):
+    """The inputs of tests/test_pallas_kernels.py::TestFusedDoubleConvBlock."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, X, Y, Z, C)).astype(np.float32)
+    w1 = rng.normal(size=(3, 3, 3, C, F)).astype(np.float32) * 0.2
+    b1 = rng.normal(size=(F,)).astype(np.float32) * 0.1
+    g1 = 1.0 + 0.1 * rng.normal(size=(F,)).astype(np.float32)
+    be1 = 0.1 * rng.normal(size=(F,)).astype(np.float32)
+    w2 = rng.normal(size=(3, 3, 3, F, F)).astype(np.float32) * 0.2
+    b2 = rng.normal(size=(F,)).astype(np.float32) * 0.1
+    g2 = 1.0 + 0.1 * rng.normal(size=(F,)).astype(np.float32)
+    be2 = 0.1 * rng.normal(size=(F,)).astype(np.float32)
+    if film:
+        scale = 0.2 * rng.normal(size=(B, F)).astype(np.float32)
+        shift = 0.2 * rng.normal(size=(B, F)).astype(np.float32)
+    else:
+        scale = shift = None
+    return (x, w1, b1, g1, be1, scale, shift, w2, b2, g2, be2)
+
+
+def _torch(args):
+    return [torch.from_numpy(a) if a is not None else None for a in args]
+
+
+def _assert_bf16_close(got, want):
+    np.testing.assert_allclose(got, want, **BF16_TOL)
+    assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.999
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "B,X,Y,Z,C,Fo,film,G",
+    [(2, 13, 11, 9, 12, 20, False, 1), (2, 40, 12, 12, 64, 128, True, 8)],
+)
+def test_kernels_match_plain_on_gpu(B, X, Y, Z, C, Fo, film, G):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA Hopper GPU")
+    args = _make_args(B=B, X=X, Y=Y, Z=Z, C=C, F=Fo, film=film)
+    targs = [a.cuda() if a is not None else None for a in _torch(args)]
+    targs[0] = targs[0].bfloat16()
+    before = dict(ck.LAUNCH_COUNTS)
+    got = ck.fused_double_conv_block(*targs, G, 1e-5)
+    want = ck.reference_double_conv(*targs, num_groups=G, eps=1e-5)
+    torch.cuda.synchronize()
+    assert {k: ck.LAUNCH_COUNTS[k] - before[k] for k in before} == {
+        "conv3x3x3_stats": 1, "conv3x3x3_stats_silu_in": 1, "affine_silu": 1,
+        "conv3d_3x3": 0, "flash_attention": 0,
+    }
+    _assert_bf16_close(got.float().cpu().numpy(), want.float().cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "B,H,N,D,dtype,strided",
+    [
+        (2, 2, 300, 32, torch.float32, False),
+        (2, 2, 2100, 16, torch.float32, False),
+        (2, 4, 2100, 32, torch.bfloat16, False),
+        (1, 3, 700, 24, torch.bfloat16, False),
+        (2, 4, 2048, 32, torch.bfloat16, True),
+        (2, 4, 2048, 32, torch.float32, True),
+    ],
+)
+def test_flash_attention_matches_plain_on_gpu(B, H, N, D, dtype, strided):
+    """The kernel against its plain version (TF32 off): f32 at the f32
+    tolerance, bf16 at the bf16 one; ``strided`` passes the U-Net's
+    ``qkv[:, :, i].transpose(1, 2)`` views.  One launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA Hopper GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(N + D)
+    if strided:
+        qkv = torch.randn(B, N, 3, H, D, generator=gen).to("cuda", dtype)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    else:
+        q, k, v = (torch.randn(B, H, N, D, generator=gen).to("cuda", dtype) for _ in range(3))
+    before = ck.LAUNCH_COUNTS["flash_attention"]
+    got = ck.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert ck.LAUNCH_COUNTS["flash_attention"] == before + 1
+    want = ck._flash_attention_plain(q, k, v)
+    assert got.dtype == dtype and got.shape == (B, H, N, D)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **F32_TOL)
+    else:
+        _assert_bf16_close(got.float().cpu().numpy(), want.float().cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA Hopper GPU")
+    q = torch.zeros(1, 1, 64, 12, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ck.flash_attention(q, q, q)
+    q = torch.zeros(1, 1, 64, 16, device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        ck.flash_attention(q, q, q)
+    q = torch.zeros(1, 1, 16, 64, device="cuda").transpose(-1, -2)
+    with pytest.raises(ValueError, match="unit stride"):
+        ck.flash_attention(q, q, q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cin,cout", [((6, 10, 13), 12, 16), ((40, 12, 12), 64, 64)])
+def test_conv3d_3x3_matches_plain_on_gpu(shape, cin, cout, dtype):
+    """conv3d_3x3 (the conv kernel without moments) against its plain
+    version, output in x's type; its backward gives finite gradients."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA Hopper GPU")
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(cin)
+    x = torch.randn(2, *shape, cin, generator=gen).to("cuda", dtype)
+    w = (0.1 * torch.randn(3, 3, 3, cin, cout, generator=gen)).cuda()
+    b = torch.randn(cout, generator=gen).cuda()
+    before = ck.LAUNCH_COUNTS["conv3d_3x3"]
+    got = ck.conv3d_3x3(x, w, b)
+    torch.cuda.synchronize()
+    assert ck.LAUNCH_COUNTS["conv3d_3x3"] == before + 1
+    want = ck._conv3d_3x3_plain(x, w, b)
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        # The same bf16 products summed in f32 in another order.
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    else:
+        _assert_bf16_close(got.float().cpu().numpy(), want.float().cpu().numpy())
+    leaves = [t.float().requires_grad_() for t in (x, w, b)]
+    ck.conv3d_3x3(*leaves).square().mean().backward()
+    assert all(bool(torch.isfinite(t.grad).all()) and float(t.grad.abs().max()) > 0 for t in leaves)

@@ -3,7 +3,7 @@ package: the plain chain against ``_reference_double_conv`` in f32, and the
 plain chain and the kernel decomposition (each kernel's plain version plus
 the GroupNorm fold) against the Pallas ``fused_double_conv_block`` in
 interpret mode at bf16 tolerance.  The kernels themselves run only on the
-card (marker ``gpu``)."""
+card: ``tests/test_torch_gpu.py`` (marker ``gpu``)."""
 
 import numpy as np
 import pytest
@@ -178,37 +178,3 @@ def test_gate_engages_the_four_shapes_grid_blocks():
         "u_net.up_0": ((194, 50, 50), 128, 32),
         "decode_resnet": ((194, 50, 50), 32, 32),
     }
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize(
-    "B,X,Y,Z,C,Fo,film,G",
-    [(2, 13, 11, 9, 12, 20, False, 1), (2, 40, 12, 12, 64, 128, True, 8)],
-)
-def test_kernels_match_plain_on_gpu(B, X, Y, Z, C, Fo, film, G):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA Hopper GPU")
-    args = _make_args(B=B, X=X, Y=Y, Z=Z, C=C, F=Fo, film=film)
-    targs = [a.cuda() if a is not None else None for a in _torch(args)]
-    targs[0] = targs[0].bfloat16()
-    before = dict(ck.LAUNCH_COUNTS)
-    got = ck.fused_double_conv_block(*targs, G, 1e-5)
-    want = ck.reference_double_conv(*targs, num_groups=G, eps=1e-5)
-    torch.cuda.synchronize()
-    assert {k: ck.LAUNCH_COUNTS[k] - before[k] for k in before} == {
-        "conv3x3x3_stats": 1, "conv3x3x3_stats_silu_in": 1, "affine_silu": 1,
-    }
-    _assert_bf16_close(got.float().cpu().numpy(), want.float().cpu().numpy())
-
-
-@pytest.mark.gpu
-def test_flash_attention_sizes_raise_on_gpu():
-    """Where the JAX package runs its Pallas flash kernel (N >= 2048), the
-    port raises on CUDA until that kernel is ported (ROADMAP K3)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    from generative_turbulence_tpu_torch.ops.attention import multihead_attention
-
-    q = torch.zeros(1, 1, 2048, 8, device="cuda")
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        multihead_attention(q, q, q)
