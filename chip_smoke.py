@@ -12,12 +12,17 @@ Run from the repository root:  python3 chip_smoke.py
 3. Kernel vs plain: the fused ResnetBlock chain against its plain torch
    version at the four block shapes the shapes-grid U-Net sends through it
    (batch 8, FiLM on, 8 groups) and one small ragged shape (1 group, no
-   FiLM), plus each kernel against its own plain version; one backward.
+   FiLM); each of its three kernels against its own plain version at the
+   four block shapes, timed beside it and, for the convs, beside cuDNN's
+   bf16 pad + conv + bias, and where both convs have one shape, the silu
+   conv against the plain one timed in turns; the kernels again at a shape
+   whose bricks overhang every axis (silu prologue on); one backward.
 3b. flash_attention against its plain version at the 2-level bottleneck's
    shape (8, 4, 6912, 32), as the U-Net's strided qkv views, in bf16 and
    f32, and at a ragged (2, 2, 2100, 16); second runs bit-equal; times.
 3c. conv3d_3x3 against its plain version at the u_net.down_0 shape
-   (8x194x50x50, 64->64), bf16 and f32 inputs; one backward; times.
+   (8x194x50x50, 64->64), bf16 and f32 inputs; one backward; times beside
+   the plain version and cuDNN's bf16 pad + conv + bias.
 4. Main path, 4 levels: a synthetic shapes case (192x48x48 cells, padded
    194x50x50) built in memory, a seeded dim-32 4-level DenoisingModel in
    bf16, DDIM with 10 steps and a 4-step ancestral run at batch 8 through
@@ -39,6 +44,7 @@ Any failure exits non-zero before the last line.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -110,6 +116,25 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def paired_ratio(torch, fn_a, fn_b, rounds: int) -> float:
+    """Median over ``rounds`` of (device time of fn_b) / (that of fn_a), each
+    round timing them in turns a, b, b, a, so that drifts of the card's
+    clocks fall on both sides (after a warm-up of each)."""
+    fn_a()
+    fn_b()
+    ratios = []
+    for _ in range(rounds):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+        for k, fn in enumerate((fn_a, fn_b, fn_b, fn_a)):
+            events[2 * k].record()
+            fn()
+            events[2 * k + 1].record()
+        events[-1].synchronize()
+        t = [events[2 * k].elapsed_time(events[2 * k + 1]) for k in range(4)]
+        ratios.append((t[1] + t[2]) / (t[0] + t[3]))
+    return statistics.median(ratios)
+
+
 def compare(torch, got, want, what: str) -> float:
     """bf16 agreement: allclose(rtol 0.06, atol 0.03) and correlation > 0.999."""
     got, want = got.float(), want.float()
@@ -153,6 +178,79 @@ def block_args(torch, gen, B, X, Y, Z, C, F, film: bool):
     ]
 
 
+def single_kernel_rows(torch, ck, gen, block, B, X, Y, Z, C, F, timed=True):
+    """The chain's three kernels at one block shape, each against its plain
+    version (output, channel moments within 1e-3, second run bit-equal);
+    with ``timed``, each launch's time beside its plain version's and, for
+    the convs, cuDNN's bf16 pad + conv + bias and TFLOP/s; where C == F, the
+    silu_in conv's time over the plain conv's, the two timed in turns."""
+    bf = torch.bfloat16
+    x = (torch.randn(B, X, Y, Z, C, generator=gen)).to("cuda", bf)
+    h_in = (torch.randn(B, X, Y, Z, F, generator=gen)).to("cuda", bf)
+    w1 = (torch.randn(3, 3, 3, C, F, generator=gen) * (27 * C) ** -0.5).to("cuda", bf)
+    w2 = (torch.randn(3, 3, 3, F, F, generator=gen) * (27 * F) ** -0.5).to("cuda", bf)
+    b1, b2 = ((0.1 * torch.randn(F, generator=gen)).cuda() for _ in range(2))
+    act = ((1 + 0.2 * torch.randn(B, F, generator=gen)).cuda(),
+           (0.2 * torch.randn(B, F, generator=gen)).cuda())
+    a2 = (1 + 0.2 * torch.randn(B, F, generator=gen)).cuda()
+    c2 = (0.2 * torch.randn(B, F, generator=gen)).cuda()
+    n = X * Y * Z
+    launches = [
+        ("conv3x3x3_stats", x, w1, b1, None),
+        ("conv3x3x3_stats_silu_in", h_in, w2, b2, act),
+    ]
+    rows, runs = [], {}
+    for name, xi, w, b, a in launches:
+        run = runs[name] = functools.partial(ck._conv3x3x3_stats_kernel, xi, w, b, a)
+        run_plain = functools.partial(ck._conv3x3x3_stats_plain, xi, w, b, a)
+        (got, part), (want, want_part) = run(), run_plain()
+        torch.cuda.synchronize()
+        label = f"{name} {block} B={B} {X}x{Y}x{Z} {xi.shape[-1]}->{F}"
+        err = compare(torch, got, want, label)
+        sums, want_sums = part.sum(1), want_part.sum(1)
+        # The moments as GroupNorm reads them: per-channel mean and variance
+        # over the X*Y*Z voxels of each batch element.
+        mean, want_mean = sums[:, 0] / n, want_sums[:, 0] / n
+        var = sums[:, 1] / n - mean**2
+        want_var = want_sums[:, 1] / n - want_mean**2
+        err_mean = float(((mean - want_mean).abs() / want_var.sqrt()).max())
+        err_var = float(((var - want_var).abs() / want_var).max())
+        log(f"    channel moments: max |mean err|/std {err_mean!r}, max |var err|/var {err_var!r}")
+        check(max(err_mean, err_var) < 1e-3, f"{label}: channel moments off")
+        again, again_part = run()
+        check(torch.equal(got, again) and torch.equal(part, again_part), f"{label}: a second run differs")
+        del got, want, again, part, want_part, again_part
+        if not timed:
+            continue
+        cudnn = lambda: ck._conv3d_replicate(xi, w) + b.to(bf)
+        ms, plain, cudnn_ms = cuda_ms(torch, run, 20), cuda_ms(torch, run_plain, 5), cuda_ms(torch, cudnn, 20)
+        flop = 2 * B * n * 27 * xi.shape[-1] * F
+        tflops, cudnn_tflops = flop / ms / 1e9, flop / cudnn_ms / 1e9
+        log(f"    kernel {ms!r} ms ({tflops!r} TFLOP/s), plain (f32 products) {plain!r} ms, "
+            f"cuDNN bf16 pad+conv+bias {cudnn_ms!r} ms ({cudnn_tflops!r} TFLOP/s)")
+        rows.append({"name": name, "block": block, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "cudnn_bf16_ms": cudnn_ms, "tflops": tflops, "cudnn_tflops": cudnn_tflops})
+    if timed and C == F:
+        # The prologue's cost: the two convs differ only in it here.
+        ratio = paired_ratio(torch, runs["conv3x3x3_stats"], runs["conv3x3x3_stats_silu_in"], 10)
+        log(f"    conv3x3x3_stats_silu_in / conv3x3x3_stats, timed in turns: {ratio!r}")
+        rows[1]["over_core_in_turns"] = ratio
+    h = ck._conv3x3x3_stats_kernel(h_in, w2, b2, act)[0]
+    run = lambda: ck.affine_silu(h, a2, c2, bf)
+    run_plain = lambda: ck._affine_silu_plain(h, a2, c2, bf)
+    got, want = run(), run_plain()
+    torch.cuda.synchronize()
+    err = compare(torch, got, want, f"affine_silu {block} B={B} {X}x{Y}x{Z}x{F}")
+    check(torch.equal(got, run()), f"affine_silu {block}: a second run differs")
+    if timed:
+        ms, plain = cuda_ms(torch, run, 10), cuda_ms(torch, run_plain, 10)
+        gbs = 2 * h.numel() * 2 / ms / 1e6
+        log(f"    affine_silu kernel {ms!r} ms ({gbs!r} GB/s), plain {plain!r} ms")
+        rows.append({"name": "affine_silu", "block": block, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain, "gb_per_s": gbs})
+    return rows
+
+
 def kernel_phase(torch, ck):
     gen = torch.Generator().manual_seed(0)
     log("[3] fused block: kernel chain vs reference_double_conv (bf16); second run bit-equal")
@@ -175,59 +273,42 @@ def kernel_phase(torch, ck):
             log(f"    kernel chain {ms!r} ms, plain chain {plain!r} ms")
             block_rows.append({"block": name, "max_abs_err": err, "ms": ms, "plain_ms": plain})
 
-        # Each kernel against its own plain version at the down_0 shape.
-        log("[3] single kernels vs their plain versions at u_net.down_0 (B=8, 64->64)")
-        _, X, Y, Z, C, F = ENGAGED_BLOCKS[0]
-        args = block_args(torch, gen, BATCH, X, Y, Z, C, F, True)
-        x = args[0]
-        w = args[1].to(torch.bfloat16).contiguous()
-        b = args[2]
-        act = ((1 + 0.2 * torch.randn(BATCH, C, generator=gen)).cuda(),
-               (0.2 * torch.randn(BATCH, C, generator=gen)).cuda())
-        a2 = (1 + 0.2 * torch.randn(BATCH, F, generator=gen)).cuda()
-        c2 = (0.2 * torch.randn(BATCH, F, generator=gen)).cuda()
-        h = ck.conv3x3x3_stats(x, w, b)[0]
-        single = [
-            ("conv3x3x3_stats", f"{PALLAS}:463", f"{PALLAS}:251",
-             lambda: ck.conv3x3x3_stats(x, w, b),
-             lambda: ck._conv3x3x3_stats_plain(x, w, b, None)),
-            ("conv3x3x3_stats_silu_in", f"{PALLAS}:562", f"{PALLAS}:463",
-             lambda: ck.conv3x3x3_stats(x, w, b, act),
-             lambda: ck._conv3x3x3_stats_plain(x, w, b, act)),
-            ("affine_silu", f"{PALLAS}:588", None,
-             lambda: (ck.affine_silu(h, a2, c2, torch.bfloat16), None),
-             lambda: (ck._affine_silu_plain(h, a2, c2, torch.bfloat16), None)),
-        ]
-        kernels = []
-        for name, replaces, also, run, run_plain in single:
-            (got, sums), (want, want_sums) = run(), run_plain()
-            torch.cuda.synchronize()
-            err = compare(torch, got, want, name)
-            if sums is not None:
-                # The moments as GroupNorm reads them: per-channel mean and
-                # variance over the X*Y*Z voxels of each batch element.
-                n = X * Y * Z
-                mean, want_mean = sums[:, 0] / n, want_sums[:, 0] / n
-                var = sums[:, 1] / n - mean**2
-                want_var = want_sums[:, 1] / n - want_mean**2
-                err_mean = float(((mean - want_mean).abs() / want_var.sqrt()).max())
-                err_var = float(((var - want_var).abs() / want_var).max())
-                log(f"  {name} channel moments: max |mean err|/std {err_mean!r}, "
-                    f"max |var err|/var {err_var!r}")
-                check(max(err_mean, err_var) < 1e-3, f"{name}: channel moments off")
-            ms, plain = cuda_ms(torch, run, 10), cuda_ms(torch, run_plain, 10)
-            log(f"    {name}: kernel {ms!r} ms, plain {plain!r} ms")
-            entry = {
+        # Each kernel of the chain against its own plain version at every
+        # engaged block shape, beside cuDNN's bf16 pad + conv + bias (the
+        # same bf16-operand, f32-accumulation arithmetic) for each conv.
+        log("[3] single kernels vs their plain versions at the engaged blocks (B=8)")
+        kernels = {
+            name: {
                 "name": name, "route": "cuda",
                 "source": "generative_turbulence_tpu_torch/csrc/fused_double_conv.cu",
-                "replaces": replaces, "launches": 0, "max_abs_err": err,
-                "ms": ms, "plain_ms": plain,
+                "replaces": replaces, "launches": 0, "blocks": [],
+                **({"also_replaces": also} if also else {}),
             }
-            if also:
-                entry["also_replaces"] = also
-            kernels.append(entry)
-        cudnn = cuda_ms(torch, lambda: ck._conv3d_replicate(x, w), 10)
-        log(f"    for scale: cuDNN bf16 conv3d (pad + conv, no stats) {cudnn!r} ms")
+            for name, replaces, also in (
+                ("conv3x3x3_stats", f"{PALLAS}:463", f"{PALLAS}:251"),
+                ("conv3x3x3_stats_silu_in", f"{PALLAS}:562", f"{PALLAS}:463"),
+                ("affine_silu", f"{PALLAS}:588", None),
+            )
+        }
+        for block, X, Y, Z, C, F in ENGAGED_BLOCKS:
+            for row in single_kernel_rows(torch, ck, gen, block, BATCH, X, Y, Z, C, F):
+                kernels[row.pop("name")]["blocks"].append(row)
+        log("[3] single kernels at a shape whose bricks overhang every axis (silu_in on)")
+        single_kernel_rows(torch, ck, gen, "overhang", 2, 7, 6, 13, 64, 64, timed=False)
+        # The conv redesign's targets at batch 8, reported beside each other
+        # (not checked): at down_0 the conv core against cuDNN's bf16 pad +
+        # conv and the silu_in conv against the core; the down_1 chain
+        # against the plain chain.
+        core, silu = (kernels[n]["blocks"][0] for n in ("conv3x3x3_stats", "conv3x3x3_stats_silu_in"))
+        down_1 = block_rows[1]
+        log(f"[3] down_0: conv core {core['ms']!r} ms vs cuDNN bf16 pad+conv+bias "
+            f"{core['cudnn_bf16_ms']!r} ms; silu_in / core {silu['ms'] / core['ms']!r} "
+            f"(timed in turns {silu['over_core_in_turns']!r}); "
+            f"down_1 chain {down_1['ms']!r} ms vs plain chain {down_1['plain_ms']!r} ms")
+        # The top-level numbers of each entry are those at down_0.
+        for entry in kernels.values():
+            entry.update({k: v for k, v in entry["blocks"][0].items() if k != "block"})
+        kernels = list(kernels.values())
 
     log("[3] backward (autograd of the plain chain) at a small shape")
     args = block_args(torch, gen, 1, 64, 24, 24, 16, 16, True)
@@ -297,6 +378,7 @@ def conv3d_phase(torch, ck):
     w = (torch.randn(3, 3, 3, C, F, generator=gen) * (27 * C) ** -0.5).cuda()
     b = (0.1 * torch.randn(F, generator=gen)).cuda()
     x32 = torch.randn(BATCH, X, Y, Z, C, generator=gen).cuda()
+    flop = 2 * BATCH * X * Y * Z * 27 * C * F
     rows = {}
     ck.reset_launch_counts()
     with torch.inference_mode():
@@ -312,9 +394,12 @@ def conv3d_phase(torch, ck):
             check(torch.equal(got, ck.conv3d_3x3(x, w, b)), f"conv3d_3x3 {dtype}: a second run differs")
             ms = cuda_ms(torch, lambda: ck.conv3d_3x3(x, w, b), 10)
             plain = cuda_ms(torch, lambda: ck._conv3d_3x3_plain(x, w, b), 10)
-            log(f"    kernel {ms!r} ms, plain {plain!r} ms")
+            log(f"    kernel {ms!r} ms ({flop / ms / 1e9!r} TFLOP/s), plain {plain!r} ms")
             rows[dtype] = (err, ms, plain)
             del got, want
+        xb, wb, bb = x32.to(torch.bfloat16), w.to(torch.bfloat16), b.to(torch.bfloat16)
+        cudnn = cuda_ms(torch, lambda: ck._conv3d_replicate(xb, wb) + bb, 10)
+        log(f"    cuDNN bf16 pad+conv+bias {cudnn!r} ms ({flop / cudnn / 1e9!r} TFLOP/s)")
     phase_launches = ck.LAUNCH_COUNTS["conv3d_3x3"]
     check(phase_launches > 0, "conv3d_3x3 did not launch")
     log("[3c] backward (autograd of the plain conv) at a small shape")
@@ -336,6 +421,7 @@ def conv3d_phase(torch, ck):
         "replaces": f"{PALLAS}:294", "also_replaces": f"{PALLAS}:251",
         "launches": 0, "on_main_path": False, "kernel_phase_launches": phase_launches,
         "max_abs_err": err, "ms": ms, "plain_ms": plain, "dtype": "bfloat16",
+        "cudnn_bf16_ms": cudnn, "tflops": flop / ms / 1e9, "cudnn_tflops": flop / cudnn / 1e9,
         "f32_max_abs_err": f32_err, "f32_ms": f32_ms, "f32_plain_ms": f32_plain,
     }
 

@@ -7,12 +7,16 @@ with bf16 conv operands and f32 accumulation and statistics.  On a CUDA
 tensor it runs three kernel launches from ``csrc/fused_double_conv.cu``:
 
 1. ``conv3x3x3_stats``: the first conv, replicate padding by clamped
-   addressing, with per-block channel moments of the f32 result;
+   addressing, with per-brick channel moments of the f32 result;
 2. ``conv3x3x3_stats_silu_in``: the second conv, applying the first
-   GroupNorm + FiLM + SiLU as ``silu(a*x + b)`` to its input as it loads it;
+   GroupNorm + FiLM + SiLU as ``silu(a*x + b)`` to its input once per
+   staged element;
 3. ``affine_silu``: the second GroupNorm + SiLU, written in the input dtype.
 
-Between the launches ``_gn_affine`` folds the moments into per-(B, F) ``a, b``
+The conv kernel takes its weights packed by ``pack_conv_weights`` (one
+small pack per call) and writes one row of channel moments per output
+brick of ``conv_brick`` voxels; ``conv3x3x3_stats`` sums them in a fixed
+order.  Between the launches ``_gn_affine`` folds the moments into per-(B, F) ``a, b``
 in a few f32 torch ops.  On a CPU tensor every wrapper takes its plain torch
 version instead; nothing falls back silently from a CUDA tensor.
 
@@ -138,13 +142,18 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gt_conv3x3x3_tile_m.argtypes = []
-        lib.gt_conv3x3x3_tile_m.restype = i
-        lib.gt_conv3x3x3_stats.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.gt_conv3x3x3_brick.argtypes = [i, ctypes.POINTER(i)]
+        lib.gt_conv3x3x3_brick.restype = None
+        for bn in (32, 64, 128):
+            brick = (i * 3)()
+            lib.gt_conv3x3x3_brick(bn, brick)
+            if tuple(brick) != conv_brick(bn):
+                raise RuntimeError(f"library brick {tuple(brick)} != conv_brick({bn}) {conv_brick(bn)}")
+        lib.gt_conv3x3x3_stats.argtypes = [p, p, p, p, p, p, p, *([i] * 8), p]
         lib.gt_conv3x3x3_stats.restype = i
         lib.gt_affine_silu.argtypes = [p, p, p, p, i, i, ctypes.c_longlong, i, p]
         lib.gt_affine_silu.restype = i
-        lib.gt_conv3d_3x3.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.gt_conv3d_3x3.argtypes = [p, p, p, p, *([i] * 9), p]
         lib.gt_conv3d_3x3.restype = i
         ll = ctypes.c_longlong
         lib.gt_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, *([ll] * 9), p]
@@ -189,7 +198,61 @@ def _spatial_bcast(v: torch.Tensor) -> torch.Tensor:
     return v[:, None, None, None, :]
 
 
+def conv_tiling(c_in: int, features: int) -> Tuple[int, int]:
+    """(BN, KC) of the conv kernel: output channels per block (32, 64 or 128;
+    more are split over blocks) and input channels per halo chunk (32, or 64
+    walked in chunks); both are zero-padded up to a multiple."""
+    bn = 32 if features <= 32 else 64 if features <= 64 else 128
+    return bn, 32 if c_in <= 32 else 64
+
+
+def conv_brick(bn: int) -> Tuple[int, int, int]:
+    """The output brick (x, y, z) of one block of the conv kernel at output
+    tile ``bn``: one y line of 8 x 8 voxels (one wgmma m64 tile) per
+    warpgroup, four warpgroups up to bn = 64, two at 128.  The library's
+    gt_conv3x3x3_brick must agree (checked at load)."""
+    return (8, 2 if bn == 128 else 4, 8)
+
+
+def conv_n_bricks(X: int, Y: int, Z: int, brick: Tuple[int, int, int]) -> int:
+    """Output bricks of ``brick`` voxels covering an X x Y x Z grid."""
+    return -(-X // brick[0]) * -(-Y // brick[1]) * -(-Z // brick[2])
+
+
+def pack_conv_weights(w: torch.Tensor, bn: int, kc: int) -> torch.Tensor:
+    """(3, 3, 3, C, F) weights -> the kernel's B ring images, bf16.
+
+    Shape (F tiles, C chunks, 27 taps, kc/16, bn/8, 2, 8, 8): for each F
+    tile of ``bn`` channels, C chunk of ``kc`` channels and tap, one stage of
+    the ring, walked in that order.  A stage holds kc/16 slabs of 16 input
+    channels; a slab holds K-major 8x8 core matrices, (group j of 8 output
+    channels, half h of the 16 input channels), each 8 output channels x 8
+    input channels.  Element [t, c, tap, k, j, h, r, e] is
+    w[tap, c*kc + 16k + 8h + e, t*bn + 8j + r]; channels beyond C or F are 0.
+    """
+    C, Fo = w.shape[3], w.shape[4]
+    n_ch, n_ft = -(-C // kc), -(-Fo // bn)
+    wp = torch.zeros(27, n_ch * kc, n_ft * bn, dtype=torch.bfloat16, device=w.device)
+    wp[:, :C, :Fo] = w.reshape(27, C, Fo)
+    # (tap, chunk, k, h, e, F tile, j, r) -> (F tile, chunk, tap, k, j, h, r, e)
+    wp = wp.reshape(27, n_ch, kc // 16, 2, 8, n_ft, bn // 8, 8)
+    return wp.permute(5, 1, 0, 2, 6, 3, 7, 4).contiguous()
+
+
+def _brick_partials(y: torch.Tensor, brick: Tuple[int, int, int]) -> torch.Tensor:
+    """Per-brick channel sums and sums of squares of y (B, X, Y, Z, F), in the
+    kernel's brick order (z fastest): (B, conv_n_bricks(X, Y, Z, brick), 2, F)."""
+    B, X, Y, Z, Fo = y.shape
+    tx, ty, tz = brick
+    nx, ny, nz = -(-X // tx), -(-Y // ty), -(-Z // tz)
+    yp = F.pad(y.float(), (0, 0, 0, nz * tz - Z, 0, ny * ty - Y, 0, nx * tx - X))
+    yb = yp.reshape(B, nx, tx, ny, ty, nz, tz, Fo)
+    moments = [yb.sum(dim=(2, 4, 6)), (yb * yb).sum(dim=(2, 4, 6))]
+    return torch.stack(moments, dim=-2).reshape(B, nx * ny * nz, 2, Fo)
+
+
 def _conv3x3x3_stats_plain(x, w, bias, act):
+    """The kernel's plain version: (y bf16, per-brick moments of the f32 y)."""
     h = x
     if act is not None:
         a, b = act
@@ -198,8 +261,38 @@ def _conv3x3x3_stats_plain(x, w, bias, act):
     hc = F.pad(h.float().permute(0, 4, 1, 2, 3), (1, 1, 1, 1, 1, 1), mode="replicate")
     y = F.conv3d(hc, w.float().permute(4, 3, 0, 1, 2), bias.float())
     y = y.permute(0, 2, 3, 4, 1)
-    sums = torch.stack([y.sum(dim=(1, 2, 3)), (y * y).sum(dim=(1, 2, 3))], dim=1)
-    return y.to(torch.bfloat16).contiguous(), sums
+    brick = conv_brick(conv_tiling(x.shape[-1], w.shape[-1])[0])
+    return y.to(torch.bfloat16).contiguous(), _brick_partials(y, brick)
+
+
+def _conv3x3x3_stats_kernel(x, w, bias, act):
+    """Launches the conv kernel: (y bf16, per-brick moments)."""
+    B, X, Y, Z, C = x.shape
+    Fo = w.shape[-1]
+    _require_hopper(x.device)
+    _require_cuda_tensor(x, "x", torch.bfloat16, (B, X, Y, Z, C))
+    _require_cuda_tensor(w, "w", torch.bfloat16, (3, 3, 3, C, Fo))
+    _require_cuda_tensor(bias, "bias", torch.float32, (Fo,))
+    if act is not None:
+        for name, v in zip(("a", "b"), act):
+            _require_cuda_tensor(v, name, torch.float32, (B, C))
+    lib = _library()
+    bn, kc = conv_tiling(C, Fo)
+    wp = pack_conv_weights(w, bn, kc)
+    out = torch.empty((B, X, Y, Z, Fo), dtype=torch.bfloat16, device=x.device)
+    n_bricks = conv_n_bricks(X, Y, Z, conv_brick(bn))
+    partial = torch.empty((B, n_bricks, 2, Fo), dtype=torch.float32, device=x.device)
+    pa = act[0].data_ptr() if act is not None else None
+    pb = act[1].data_ptr() if act is not None else None
+    status = lib.gt_conv3x3x3_stats(
+        x.data_ptr(), wp.data_ptr(), bias.data_ptr(), pa, pb,
+        out.data_ptr(), partial.data_ptr(), B, X, Y, Z, C, Fo, bn, kc,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    name = "conv3x3x3_stats" if act is None else "conv3x3x3_stats_silu_in"
+    _check_status(status, name)
+    LAUNCH_COUNTS[name] += 1
+    return out, partial
 
 
 def conv3x3x3_stats(
@@ -216,33 +309,9 @@ def conv3x3x3_stats(
     Returns (y (B, X, Y, Z, F) bf16, sums (B, 2, F) f32) with sums[:, 0] the
     sum of the f32 conv output over all voxels and sums[:, 1] its sum of squares.
     """
-    if not x.is_cuda:
-        return _conv3x3x3_stats_plain(x, w, bias, act)
-    B, X, Y, Z, C = x.shape
-    Fo = w.shape[-1]
-    _require_hopper(x.device)
-    _require_cuda_tensor(x, "x", torch.bfloat16, (B, X, Y, Z, C))
-    _require_cuda_tensor(w, "w", torch.bfloat16, (3, 3, 3, C, Fo))
-    _require_cuda_tensor(bias, "bias", torch.float32, (Fo,))
-    if act is not None:
-        for name, v in zip(("a", "b"), act):
-            _require_cuda_tensor(v, name, torch.float32, (B, C))
-    lib = _library()
-    tile_m = lib.gt_conv3x3x3_tile_m()
-    n_mt = -(-(X * Y * Z) // tile_m)
-    out = torch.empty((B, X, Y, Z, Fo), dtype=torch.bfloat16, device=x.device)
-    partial = torch.empty((B, n_mt, 2, Fo), dtype=torch.float32, device=x.device)
-    pa = act[0].data_ptr() if act is not None else None
-    pb = act[1].data_ptr() if act is not None else None
-    status = lib.gt_conv3x3x3_stats(
-        x.data_ptr(), w.data_ptr(), bias.data_ptr(), pa, pb,
-        out.data_ptr(), partial.data_ptr(), B, X, Y, Z, C, Fo,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    name = "conv3x3x3_stats" if act is None else "conv3x3x3_stats_silu_in"
-    _check_status(status, name)
-    LAUNCH_COUNTS[name] += 1
-    # Cross-block reduction in a fixed order (no atomics): runs repeat bit for bit.
+    run = _conv3x3x3_stats_kernel if x.is_cuda else _conv3x3x3_stats_plain
+    out, partial = run(x, w, bias, act)
+    # Cross-brick reduction in a fixed order (no atomics): runs repeat bit for bit.
     return out, partial.sum(dim=1)
 
 
@@ -302,13 +371,14 @@ def _conv3d_3x3_kernel(x, w, b):
         raise ValueError(
             f"w must be (3, 3, 3, {C}, F) and b (F,), got {tuple(w.shape)}, {tuple(b.shape)}"
         )
-    wb = w.to(device=x.device, dtype=torch.bfloat16).contiguous()
+    bn, kc = conv_tiling(C, Fo)
+    wp = pack_conv_weights(w.to(device=x.device, dtype=torch.bfloat16), bn, kc)
     bb = b.to(device=x.device, dtype=torch.float32).contiguous()
     lib = _library()
     out = torch.empty((B, X, Y, Z, Fo), dtype=x.dtype, device=x.device)
     status = lib.gt_conv3d_3x3(
-        x.data_ptr(), wb.data_ptr(), bb.data_ptr(), out.data_ptr(),
-        int(x.dtype == torch.float32), B, X, Y, Z, C, Fo,
+        x.data_ptr(), wp.data_ptr(), bb.data_ptr(), out.data_ptr(),
+        int(x.dtype == torch.float32), B, X, Y, Z, C, Fo, bn, kc,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _check_status(status, "conv3d_3x3")

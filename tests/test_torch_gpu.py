@@ -120,9 +120,72 @@ def test_flash_attention_refuses_what_it_does_not_take():
         ck.flash_attention(q, q, q)
 
 
+def _moment_errors(sums, want_sums, n):
+    """Max |mean err| / std and |var err| / var of per-channel moments."""
+    mean, want_mean = sums[:, 0] / n, want_sums[:, 0] / n
+    var = sums[:, 1] / n - mean**2
+    want_var = want_sums[:, 1] / n - want_mean**2
+    err_mean = float(((mean - want_mean).abs() / want_var.sqrt()).max())
+    err_var = float(((var - want_var).abs() / want_var).max())
+    return err_mean, err_var
+
+
+# (X, Y, Z, C, F): bricks of 8x4x8 or 8x2x8 overhang X, Y or Z (Z = 50, Z = 9), C not
+# a multiple of 8 or 16 and above one 64-channel chunk, F not a multiple of 8
+# and a full 128-channel tile.
+CONV_SHAPES = [
+    (5, 6, 50, 64, 64),
+    (7, 5, 9, 12, 20),
+    (6, 7, 9, 32, 32),
+    (5, 9, 11, 128, 128),
+    (9, 5, 10, 64, 128),
+    (4, 4, 8, 128, 32),
+    (3, 6, 13, 12, 64),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("silu_in", [False, True])
+@pytest.mark.parametrize("X,Y,Z,C,Fo", CONV_SHAPES)
+def test_conv_stats_kernel_matches_plain_on_gpu(X, Y, Z, C, Fo, silu_in):
+    """The conv kernel with moments (STATS), with and without the silu
+    prologue, against ``_conv3x3x3_stats_plain``: output at the bf16
+    tolerance, per-brick partials of the same shape, channel moments within
+    1e-3, a second run bit-equal, one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA Hopper GPU")
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(X * 1000 + C + Fo)
+    B = 2
+    x = torch.randn(B, X, Y, Z, C, generator=gen).to("cuda", torch.bfloat16)
+    w = (torch.randn(3, 3, 3, C, Fo, generator=gen) * (27 * C) ** -0.5).to("cuda", torch.bfloat16)
+    bias = (0.5 + 0.1 * torch.randn(Fo, generator=gen)).cuda()
+    act = None
+    if silu_in:
+        act = ((1 + 0.2 * torch.randn(B, C, generator=gen)).cuda(),
+               (0.2 * torch.randn(B, C, generator=gen)).cuda())
+    name = "conv3x3x3_stats_silu_in" if silu_in else "conv3x3x3_stats"
+    before = ck.LAUNCH_COUNTS[name]
+    got, partial = ck._conv3x3x3_stats_kernel(x, w, bias, act)
+    torch.cuda.synchronize()
+    assert ck.LAUNCH_COUNTS[name] == before + 1
+    want, want_partial = ck._conv3x3x3_stats_plain(x, w, bias, act)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    n_bricks = ck.conv_n_bricks(X, Y, Z, ck.conv_brick(ck.conv_tiling(C, Fo)[0]))
+    assert partial.shape == want_partial.shape == (B, n_bricks, 2, Fo)
+    _assert_bf16_close(got.float().cpu().numpy(), want.float().cpu().numpy())
+    err_mean, err_var = _moment_errors(partial.sum(1), want_partial.sum(1), X * Y * Z)
+    assert max(err_mean, err_var) < 1e-3, (err_mean, err_var)
+    again, again_partial = ck._conv3x3x3_stats_kernel(x, w, bias, act)
+    assert torch.equal(got, again) and torch.equal(partial, again_partial)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,cin,cout", [((6, 10, 13), 12, 16), ((40, 12, 12), 64, 64)])
+@pytest.mark.parametrize(
+    "shape,cin,cout",
+    [((6, 10, 13), 12, 16), ((40, 12, 12), 64, 64), ((5, 7, 50), 128, 20), ((7, 5, 9), 32, 128)],
+)
 def test_conv3d_3x3_matches_plain_on_gpu(shape, cin, cout, dtype):
     """conv3d_3x3 (the conv kernel without moments) against its plain
     version, output in x's type; its backward gives finite gradients."""
@@ -144,6 +207,7 @@ def test_conv3d_3x3_matches_plain_on_gpu(shape, cin, cout, dtype):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-4)
     else:
         _assert_bf16_close(got.float().cpu().numpy(), want.float().cpu().numpy())
+    assert torch.equal(got, ck.conv3d_3x3(x, w, b))
     leaves = [t.float().requires_grad_() for t in (x, w, b)]
     ck.conv3d_3x3(*leaves).square().mean().backward()
     assert all(bool(torch.isfinite(t.grad).all()) and float(t.grad.abs().max()) > 0 for t in leaves)

@@ -114,6 +114,70 @@ def test_plain_conv_moments_are_sums_of_its_output():
     np.testing.assert_allclose(sums[:, 1].numpy(), (yf * yf).sum((1, 2, 3)).numpy(), rtol=1e-2, atol=0.2)
 
 
+@pytest.mark.parametrize("C,Fo", [(12, 20), (32, 32), (64, 128), (128, 64), (160, 160)])
+def test_pack_conv_weights_round_trips(C, Fo):
+    """The packed B ring images hold every weight once, where the kernel's
+    descriptors read it, and zeros beyond C and F."""
+    rng = np.random.default_rng(C + Fo)
+    w = torch.from_numpy(rng.normal(size=(3, 3, 3, C, Fo)).astype(np.float32)).bfloat16()
+    bn, kc = ck.conv_tiling(C, Fo)
+    wp = ck.pack_conv_weights(w, bn, kc)
+    n_ft, n_ch = -(-Fo // bn), -(-C // kc)
+    assert wp.dtype == torch.bfloat16 and wp.is_contiguous()
+    assert wp.shape == (n_ft, n_ch, 27, kc // 16, bn // 8, 2, 8, 8)
+    # Inverse permutation back to (tap, C padded, F padded).
+    back = wp.permute(2, 1, 3, 5, 7, 0, 4, 6).reshape(27, n_ch * kc, n_ft * bn)
+    assert torch.equal(back[:, :C, :Fo], w.reshape(27, C, Fo))
+    assert not back[:, C:].any() and not back[:, :, Fo:].any()
+    # A few elements by the documented index formula.
+    for t, c, tap, k, j, h, r, e in rng.integers(0, [n_ft, n_ch, 27, kc // 16, bn // 8, 2, 8, 8], (32, 8)):
+        ci, fi = c * kc + 16 * k + 8 * h + e, t * bn + 8 * j + r
+        want = w[tap // 9, tap // 3 % 3, tap % 3, ci, fi] if ci < C and fi < Fo else 0.0
+        assert float(wp[t, c, tap, k, j, h, r, e]) == float(want)
+
+
+def test_conv_tiling_covers_the_engaged_widths():
+    assert [ck.conv_tiling(c, f) for c, f in [(64, 64), (64, 128), (128, 32), (32, 32), (12, 20)]] == [
+        (64, 64), (128, 64), (32, 64), (32, 32), (32, 32)
+    ]
+    # One y line of 8 x 8 output voxels per warpgroup: four up to 64 channels, two at 128.
+    assert [ck.conv_brick(bn) for bn in (32, 64, 128)] == [(8, 4, 8), (8, 4, 8), (8, 2, 8)]
+
+
+@pytest.mark.parametrize("brick", [(8, 4, 8), (8, 2, 8), (1, 1, 1), (3, 5, 2), (16, 16, 16)])
+@pytest.mark.parametrize("shape", [(5, 6, 50), (7, 5, 9), (4, 4, 8)])
+def test_brick_partials_sum_to_whole_grid_moments(brick, shape):
+    """For any brick split, the per-brick moments sum to the moments over the
+    whole grid, one row per ``conv_n_bricks`` brick, and each row is the
+    moments of its own brick (z fastest)."""
+    rng = np.random.default_rng(sum(shape))
+    B, Fo = 2, 12
+    y = torch.from_numpy(rng.normal(size=(B, *shape, Fo)).astype(np.float32))
+    part = ck._brick_partials(y, brick)
+    assert part.shape == (B, ck.conv_n_bricks(*shape, brick), 2, Fo)
+    whole = torch.stack([y.sum((1, 2, 3)), (y * y).sum((1, 2, 3))], dim=1)
+    np.testing.assert_allclose(part.sum(1).numpy(), whole.numpy(), rtol=1e-5, atol=1e-4)
+    nz = -(-shape[2] // brick[2])
+    ny = -(-shape[1] // brick[1])
+    last = part.shape[1] - 1
+    bx, by, bz = last // (ny * nz), last // nz % ny, last % nz
+    tail = y[:, bx * brick[0]:, by * brick[1]:, bz * brick[2]:]
+    np.testing.assert_allclose(part[:, last, 0].numpy(), tail.sum((1, 2, 3)).numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_conv_stats_plain_moments_come_from_its_partials():
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(2, 5, 6, 9, 12)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(rng.normal(size=(3, 3, 3, 12, 20)).astype(np.float32) * 0.1).bfloat16()
+    b = torch.from_numpy(rng.normal(size=20).astype(np.float32))
+    act = (torch.from_numpy(1 + 0.2 * rng.normal(size=(2, 12)).astype(np.float32)),
+           torch.from_numpy(0.2 * rng.normal(size=(2, 12)).astype(np.float32)))
+    y, part = ck._conv3x3x3_stats_plain(x, w, b, act)
+    assert part.shape == (2, ck.conv_n_bricks(5, 6, 9, ck.conv_brick(32)), 2, 20)
+    _, sums = ck.conv3x3x3_stats(x, w, b, act)
+    assert torch.equal(sums, part.sum(1))
+
+
 def test_cpu_path_launches_no_kernel():
     ck.reset_launch_counts()
     args = _torch(_make_args(B=1, X=4, Y=4, Z=4, C=8, F=8))
