@@ -58,7 +58,7 @@
 // an extra read + write pass over the halo costs about 5%.  The SILU_IN
 // prologue adds 13-17%: its shared-memory pass about a third, its
 // conversions and FMAs the rest (the tanh itself costs nothing measurable).
-// affine_silu is one grid-stride elementwise pass.
+// affine_silu is an elementwise pass bound by bytes (its note is below).
 //
 // Plain C interface, loaded with ctypes.  Every entry point launches on the
 // given stream, allocates nothing, and returns a cudaError_t.
@@ -658,17 +658,90 @@ conv3x3x3_kernel(const In* __restrict__ x,         // (B, X, Y, Z, C)
 }
 
 // out = silu(a[b, f] * h + c[b, f]) over (B, S, F), written in Out.
+//
+// Replaces the Pallas TPU kernel _affine_silu_std (_affine_silu_std_kernel,
+// generative_turbulence_tpu/ops/pallas_kernels.py:588): the second GroupNorm
+// + SiLU of the chain, written in the block's output type.
+//
+// What bounds it on an H100: bytes.  At u_net.down_0 (8 x 194x50x50 x 64)
+// it reads 62 MB of bf16 h and writes 62 MB, 0.296 ms at 3.35 TB/s; its
+// 31 M exponentials take 8 us of the MUFU.  So the math stays silu's expf
+// (no tanh.approx): the f32 output of the f32 eval path keeps its accuracy
+// at no cost in time.
+//
+// What the design does about it.  blockIdx.y is the batch element, so a and
+// c are indexed without a 64-bit division; each thread step moves 8
+// channels: one 16-byte load of h, two float4 loads each of a and c (from
+// L1: B x F floats in all), one 16-byte store (two for f32 output).  A
+// thread takes UNROLL steps, their loads issued before any math, so that
+// 2,048 threads x 64 bytes are in flight per SM.  F not a multiple of 8
+// (the vectors would straddle voxels and lose their alignment) takes a
+// scalar path through the same steps.  per_batch = S * F is below
+// 2^31 - SILU_UNROLL * SILU_THREADS * 8, so no 32-bit offset of a block's
+// last steps overflows (gt_affine_silu checks).
+constexpr int SILU_THREADS = 256, SILU_UNROLL = 4;
+
 template <typename Out>
-__global__ void affine_silu_kernel(const bf16* __restrict__ h,
-                                   const float* __restrict__ a,
-                                   const float* __restrict__ c,
-                                   Out* __restrict__ out,
-                                   int64_t n_total, int64_t per_batch, int F) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_total;
-       i += stride) {
-    const int64_t k = (i / per_batch) * F + i % F;
-    out[i] = from_float<Out>(silu(a[k] * __bfloat162float(h[i]) + c[k]));
+__device__ __forceinline__ void store8(Out* dst, const float (&y)[8]);
+template <>
+__device__ __forceinline__ void store8<bf16>(bf16* dst, const float (&y)[8]) {
+  alignas(16) bf16 v[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = __float2bfloat16(y[j]);
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+}
+template <>
+__device__ __forceinline__ void store8<float>(float* dst, const float (&y)[8]) {
+  reinterpret_cast<float4*>(dst)[0] = make_float4(y[0], y[1], y[2], y[3]);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(y[4], y[5], y[6], y[7]);
+}
+
+template <typename Out>
+__global__ void __launch_bounds__(SILU_THREADS)
+affine_silu_kernel(const bf16* __restrict__ h, const float* __restrict__ a,
+                   const float* __restrict__ c, Out* __restrict__ out, int per_batch, int F) {
+  const int64_t base = (int64_t)blockIdx.y * per_batch;
+  const bf16* hb = h + base;
+  Out* ob = out + base;
+  const float* ab = a + blockIdx.y * F;
+  const float* cb = c + blockIdx.y * F;
+  // Step u of this thread covers elements e .. e + 7 of the batch element.
+  const int e0 = (blockIdx.x * SILU_UNROLL * SILU_THREADS + threadIdx.x) * 8;
+  constexpr int STEP = SILU_THREADS * 8;
+  if (F % 8 == 0) {  // then per_batch % 8 == 0: a step is all in or all out
+    uint4 hv[SILU_UNROLL];
+#pragma unroll
+    for (int u = 0; u < SILU_UNROLL; ++u)
+      if (e0 + u * STEP < per_batch) hv[u] = *reinterpret_cast<const uint4*>(hb + e0 + u * STEP);
+#pragma unroll
+    for (int u = 0; u < SILU_UNROLL; ++u) {
+      const int e = e0 + u * STEP;
+      if (e >= per_batch) break;
+      const int f = e % F;
+      const float4 a0 = *reinterpret_cast<const float4*>(ab + f);
+      const float4 a1 = *reinterpret_cast<const float4*>(ab + f + 4);
+      const float4 c0 = *reinterpret_cast<const float4*>(cb + f);
+      const float4 c1 = *reinterpret_cast<const float4*>(cb + f + 4);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float cv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+      const bf16* x = reinterpret_cast<const bf16*>(&hv[u]);
+      float y[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) y[j] = silu(av[j] * __bfloat162float(x[j]) + cv[j]);
+      store8<Out>(ob + e, y);
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < SILU_UNROLL; ++u) {
+      const int e = e0 + u * STEP;
+      int f = e % F;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (e + j >= per_batch) break;
+        ob[e + j] = from_float<Out>(silu(ab[f] * __bfloat162float(hb[e + j]) + cb[f]));
+        if (++f == F) f = 0;
+      }
+    }
   }
 }
 
@@ -762,25 +835,28 @@ extern "C" int gt_conv3d_3x3(const void* x, const void* w, const void* bias, voi
                                                           out, nullptr, B, X, Y, Z, C, F, s);
 }
 
-// out_f32 != 0: out is f32, else bf16.  h: (B, S, F) bf16; a, c: (B, F) f32.
+// out_f32 != 0: out is f32, else bf16.  h: (B, S, F) bf16; a, c: (B, F) f32;
+// all 16-byte aligned.  Returns cudaErrorInvalidValue unless
+// S * F < 2^31 - SILU_UNROLL * SILU_THREADS * 8 and B < 65536 (the grid's y
+// extent); launches nothing when S * F or B is 0.
 extern "C" int gt_affine_silu(const void* h, const void* a, const void* c, void* out,
                               int out_f32, int B, long long S, int F, void* stream) {
   cudaGetLastError();
+  const long long per_batch = S * F;
+  if (per_batch >= (1LL << 31) - SILU_UNROLL * SILU_THREADS * 8 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (per_batch == 0 || B == 0) return (int)cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
-  const int64_t per_batch = (int64_t)S * F;
-  const int64_t n_total = per_batch * B;
-  const int threads = 256;
-  int64_t blocks = (n_total + threads - 1) / threads;
-  if (blocks > 132 * 64) blocks = 132 * 64;
-  if (blocks < 1) blocks = 1;
+  constexpr long long per_block = SILU_UNROLL * SILU_THREADS * 8;
+  const dim3 grid((unsigned)((per_batch + per_block - 1) / per_block), (unsigned)B);
   auto* hp = static_cast<const bf16*>(h);
   auto* ap = static_cast<const float*>(a);
   auto* cp = static_cast<const float*>(c);
   if (out_f32)
-    affine_silu_kernel<float><<<(unsigned)blocks, threads, 0, s>>>(
-        hp, ap, cp, static_cast<float*>(out), n_total, per_batch, F);
+    affine_silu_kernel<float><<<grid, SILU_THREADS, 0, s>>>(hp, ap, cp, static_cast<float*>(out),
+                                                            (int)per_batch, F);
   else
-    affine_silu_kernel<bf16><<<(unsigned)blocks, threads, 0, s>>>(
-        hp, ap, cp, static_cast<bf16*>(out), n_total, per_batch, F);
+    affine_silu_kernel<bf16><<<grid, SILU_THREADS, 0, s>>>(hp, ap, cp, static_cast<bf16*>(out),
+                                                           (int)per_batch, F);
   return (int)cudaGetLastError();
 }

@@ -45,7 +45,7 @@ class GridMap:
         meta: CaseMetadata,
         variables: Sequence[Variable],
         *,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> "GridMap":
         d_idx, d_vals = meta.dirichlet_table(variables)
         as_long = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)  # noqa: E731

@@ -11,7 +11,8 @@ tensor it runs three kernel launches from ``csrc/fused_double_conv.cu``:
 2. ``conv3x3x3_stats_silu_in``: the second conv, applying the first
    GroupNorm + FiLM + SiLU as ``silu(a*x + b)`` to its input once per
    staged element;
-3. ``affine_silu``: the second GroupNorm + SiLU, written in the input dtype.
+3. ``affine_silu``: the second GroupNorm + SiLU, written in the input dtype,
+   8 channels per 16-byte vector.
 
 The conv kernel takes its weights packed by ``pack_conv_weights`` (one
 small pack per call) and writes one row of channel moments per output
@@ -25,8 +26,9 @@ version instead; nothing falls back silently from a CUDA tensor.
 output in x's type); its backward is autograd of the plain conv.  No model
 code calls it, as in the JAX package.  ``flash_attention`` is softmax
 attention over (B, H, N, D) tokens with the online softmax inside one kernel
-(``csrc/flash_attention.cu``); ``ops.attention.multihead_attention`` takes it
-from ``FLASH_MIN_TOKENS`` tokens up.
+(``csrc/flash_attention.cu``: ``wgmma`` products fed by a TMA-filled ring of
+K/V stages in bf16, register-blocked FMA in f32); ``ops.attention.multihead_attention``
+takes it from ``FLASH_MIN_TOKENS`` tokens up.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/kernels/`` (one ``nvcc`` per source, all started together, then one
@@ -327,7 +329,11 @@ def _affine_silu_plain(h, a, b, out_dtype):
 def affine_silu(
     h: torch.Tensor, a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype
 ) -> torch.Tensor:
-    """silu(a*h + b) with per-(B, F) f32 a, b over (B, X, Y, Z, F) bf16 h."""
+    """silu(a*h + b) with per-(B, F) f32 a, b over (B, X, Y, Z, F) bf16 h.
+
+    On a CUDA tensor the kernel takes B <= 65535 and X*Y*Z*F below its
+    32-bit offsets' limit (``gt_affine_silu``); past them it raises.
+    """
     if not h.is_cuda:
         return _affine_silu_plain(h, a, b, out_dtype)
     B, X, Y, Z, Fo = h.shape
@@ -336,8 +342,10 @@ def affine_silu(
     _require_cuda_tensor(h, "h", torch.bfloat16, (B, X, Y, Z, Fo))
     _require_cuda_tensor(a, "a", torch.float32, (B, Fo))
     _require_cuda_tensor(b, "b", torch.float32, (B, Fo))
-    lib = _library()
     out = torch.empty(h.shape, dtype=out_dtype, device=h.device)
+    if out.numel() == 0:
+        return out  # nothing to launch
+    lib = _library()
     status = lib.gt_affine_silu(
         h.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
         int(out_dtype == torch.float32), B, X * Y * Z, Fo,
@@ -440,7 +448,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     batch, head and token strides, so views such as the U-Net's
     ``qkv[:, :, i].transpose(1, 2)`` need no copy; the last stride must be 1
     and every pointer and stride 16-byte aligned.  The output is contiguous,
-    in q's type.  A CPU tensor runs ``_flash_attention_plain``.
+    in q's type.  B * H * ceil(N / 128) must stay below 2^31 (the kernels'
+    work items).  A CPU tensor runs ``_flash_attention_plain``.
     """
     if not q.is_cuda:
         return _flash_attention_plain(q, k, v)
@@ -451,8 +460,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         raise ValueError(f"flash_attention takes f32 or bf16, got {q.dtype}")
     if D % 8 or not 8 <= D <= 128:
         raise ValueError(f"flash_attention takes D a multiple of 8 up to 128, got {D}")
-    if B * H > 65535:
-        raise ValueError(f"B * H = {B * H} exceeds the grid's 65535 rows")
+    items = B * H * -(-N // 128)
+    if items >= 2**31:
+        raise ValueError(f"B * H * ceil(N / 128) = {items} work items; the kernels take < 2^31")
     _require_hopper(q.device)
     strides = []
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -469,8 +479,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         ):
             raise ValueError(f"{name}: pointer and strides must be 16-byte aligned, got {t.stride()}")
         strides += [t.stride(0), t.stride(1), t.stride(2)]
-    lib = _library()
     out = torch.empty((B, H, N, D), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out  # nothing to launch
+    lib = _library()
     status = lib.gt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         int(q.dtype == torch.float32), B, H, N, D, *strides,

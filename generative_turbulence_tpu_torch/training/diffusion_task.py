@@ -97,7 +97,7 @@ class DiffusionTask:
     ``load_flax_params``, ``net.load_state_dict`` or ``net.init_weights``.
     """
 
-    def __init__(self, cfg: ModelConfig, stats: FieldStats, device="cpu"):
+    def __init__(self, cfg: ModelConfig, stats: FieldStats, device="cuda"):
         self.cfg = cfg
         self.variables = Variable.parse_tuple(cfg.variables)
         if Variable.U not in self.variables:

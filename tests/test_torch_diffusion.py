@@ -66,7 +66,7 @@ def grids(tmp_path_factory):
         tmp_path_factory.mktemp("diff") / "case", cell_counts=(10, 6, 6), n_frames=1, seed=2
     )
     jgm = jgrid.GridMap.from_metadata(j_read_metadata(file), (JVariable.U, JVariable.P), cached=False)
-    tgm = tgrid.GridMap.from_metadata(read_metadata(file), (Variable.U, Variable.P))
+    tgm = tgrid.GridMap.from_metadata(read_metadata(file), (Variable.U, Variable.P), device="cpu")
     return jgm, tgm
 
 

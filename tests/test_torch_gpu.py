@@ -41,9 +41,16 @@ def _torch(args):
     return [torch.from_numpy(a) if a is not None else None for a in args]
 
 
-def _assert_bf16_close(got, want):
-    np.testing.assert_allclose(got, want, **BF16_TOL)
+def _assert_bf16_close(got, want, scaled=False):
+    """The bf16 tolerance and correlation > 0.999.  ``scaled`` holds the
+    result to the output's scale: atol relative to max |want| and a relative
+    L2 error within 1e-2 (attention over thousands of keys gives outputs far
+    below the plain atol, where a wrong scale would pass)."""
+    tol = dict(BF16_TOL, atol=BF16_TOL["atol"] * np.abs(want).max()) if scaled else BF16_TOL
+    np.testing.assert_allclose(got, want, **tol)
     assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.999
+    if scaled:
+        assert np.linalg.norm(got - want) <= 1e-2 * np.linalg.norm(want)
 
 
 @pytest.mark.gpu
@@ -102,7 +109,98 @@ def test_flash_attention_matches_plain_on_gpu(B, H, N, D, dtype, strided):
     if dtype == torch.float32:
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **F32_TOL)
     else:
+        _assert_bf16_close(got.float().cpu().numpy(), want.float().cpu().numpy(), scaled=True)
+
+
+def _flash_inputs(B, H, N, D, dtype, strided, seed):
+    gen = torch.Generator().manual_seed(seed)
+    if strided:  # the U-Net's qkv[:, :, i].transpose(1, 2) views
+        qkv = torch.randn(B, N, 3, H, D, generator=gen).to("cuda", dtype)
+        return [qkv[:, :, i].transpose(1, 2) for i in range(3)]
+    return [torch.randn(B, H, N, D, generator=gen).to("cuda", dtype) for _ in range(3)]
+
+
+def _assert_flash_matches_plain(q, k, v):
+    """One launch, the plain version's result at the dtype's tolerance, and
+    a second run bit-equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = ck.LAUNCH_COUNTS["flash_attention"]
+    got = ck.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert ck.LAUNCH_COUNTS["flash_attention"] == before + 1
+    want = ck._flash_attention_plain(q, k, v)
+    assert got.dtype == q.dtype and got.shape == q.shape and got.is_contiguous()
+    if q.dtype == torch.float32:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **F32_TOL)
+    else:
+        _assert_bf16_close(got.float().cpu().numpy(), want.float().cpu().numpy(), scaled=True)
+    assert torch.equal(got, ck.flash_attention(q, k, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("N", [1, 63, 64, 127, 128, 129, 2100, 6912])
+def test_flash_attention_edges_on_gpu(N, D, dtype, strided):
+    """Token counts around the key tiles (64 and 128) and the 128- and
+    192-query work items, every head width the bf16 kernel rounds to (16,
+    32, 64, 128) and the f32 one (32, 64, 128), contiguous and strided."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA Hopper GPU")
+    B, H = (1, 2) if N > 2048 else (2, 3)
+    _assert_flash_matches_plain(*_flash_inputs(B, H, N, D, dtype, strided, seed=N * 131 + D))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_takes_more_than_65535_heads_on_gpu(dtype):
+    """The kernels walk a 1-D list of work items, so B * H is not bound by
+    a grid dimension's 65,535."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA Hopper GPU")
+    _assert_flash_matches_plain(*_flash_inputs(3, 22000, 5, 8, dtype, False, seed=9))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Fo", [20, 32, 64, 128])
+@pytest.mark.parametrize("spatial", [(3, 5, 7), (17, 33, 31)])
+def test_affine_silu_matches_plain_on_gpu(spatial, Fo, out_dtype):
+    """affine_silu against its plain version: F = 20 takes the scalar path;
+    3 x 5 x 7 = 105 voxels is odd, and 17 x 33 x 31 x F elements are no
+    multiple of a block's 4 x 256 x 8; a second run is bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA Hopper GPU")
+    gen = torch.Generator().manual_seed(Fo)
+    B = 3
+    h = torch.randn(B, *spatial, Fo, generator=gen).to("cuda", torch.bfloat16)
+    a = (1 + 0.3 * torch.randn(B, Fo, generator=gen)).cuda()
+    c = (0.3 * torch.randn(B, Fo, generator=gen)).cuda()
+    before = ck.LAUNCH_COUNTS["affine_silu"]
+    got = ck.affine_silu(h, a, c, out_dtype)
+    torch.cuda.synchronize()
+    assert ck.LAUNCH_COUNTS["affine_silu"] == before + 1
+    want = ck._affine_silu_plain(h, a, c, out_dtype)
+    assert got.dtype == out_dtype and got.shape == h.shape
+    if out_dtype == torch.float32:
+        # expf on the card against torch's silu: a few ulp.
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-6)
+    else:
         _assert_bf16_close(got.float().cpu().numpy(), want.float().cpu().numpy())
+    assert torch.equal(got, ck.affine_silu(h, a, c, out_dtype))
+
+
+@pytest.mark.gpu
+def test_affine_silu_launches_nothing_on_an_empty_tensor():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA Hopper GPU")
+    h = torch.empty(2, 0, 5, 5, 32, device="cuda", dtype=torch.bfloat16)
+    a = torch.ones(2, 32, device="cuda")
+    before = ck.LAUNCH_COUNTS["affine_silu"]
+    out = ck.affine_silu(h, a, a, torch.float32)
+    assert out.shape == h.shape and out.dtype == torch.float32
+    assert ck.LAUNCH_COUNTS["affine_silu"] == before
 
 
 @pytest.mark.gpu

@@ -28,7 +28,9 @@ def _grids(case_file, names):
     jgm = jgrid.GridMap.from_metadata(
         j_read_metadata(case_file), tuple(JVariable(n) for n in names), cached=False
     )
-    tgm = tgrid.GridMap.from_metadata(read_metadata(case_file), tuple(Variable(n) for n in names))
+    tgm = tgrid.GridMap.from_metadata(
+        read_metadata(case_file), tuple(Variable(n) for n in names), device="cpu"
+    )
     return jgm, tgm
 
 
@@ -60,6 +62,17 @@ def test_embed_gather_roundtrip_and_dirichlet(case_file, names):
     inlet = tgm.cell_types.numpy() == 3
     assert inlet.any()
     np.testing.assert_array_equal(dense.numpy()[:, inlet, 0], 20.0)
+
+
+def test_gridmap_defaults_to_the_card(case_file):
+    """With no device named, the grid's tensors go to the card; without
+    CUDA that raises torch's own error instead of falling back to the CPU."""
+    meta, variables = read_metadata(case_file), (Variable.U, Variable.P)
+    if torch.cuda.is_available():
+        assert tgrid.GridMap.from_metadata(meta, variables).cell_idx.is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            tgrid.GridMap.from_metadata(meta, variables)
 
 
 def test_masked_mean_and_apply_inside(case_file):

@@ -70,3 +70,55 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
     )
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports torch only when it runs)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO_ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_chip_smoke_bound_takes_the_slower_rate():
+    """chip_smoke.py's bound: the larger of the bytes over the memory rate
+    and each operation count over its peak rate.  At the 2-level path's
+    attention shape the exponentials bind bf16 (1.53e9 ex2 at 3.9e12/s,
+    beside 0.198 ms of tensor-core FLOP); affine_silu at u_net.down_0 is
+    bound by its bytes."""
+    smoke = _chip_smoke()
+    B, H, N, D = smoke.FLASH_PATH_SHAPE
+    got = smoke.bound(4 * B * H * N * D * 2, **{"bf16 tensor FLOP": 4 * B * H * N * N * D,
+                                                "MUFU ex2": B * H * N * N})
+    assert (got["bound_by"], got["bound_kind"]) == ("operations", "MUFU ex2")
+    assert got["bound_ms"] == pytest.approx(B * H * N * N / 3.9e12 * 1e3)
+    assert got["bound_ms"] == pytest.approx(0.392006, rel=1e-5)
+    h = 8 * 194 * 50 * 50 * 64
+    got = smoke.bound(2 * h * 2 + 2 * 8 * 64 * 4, **{"MUFU ex2": h})
+    assert (got["bound_by"], got["bound_kind"]) == ("bytes", "bytes")
+    assert got["bound_ms"] == pytest.approx((4 * h + 4096) / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("factor", [1.0, 0.9, 1.1])
+def test_chip_smoke_flash_check_holds_the_output_scale(factor):
+    """chip_smoke.py's bf16 flash_attention check at 2100 keys, where a 10%
+    error of the largest output is still below the plain atol of 0.03: the
+    plain check passes the exact output scaled by 0.9 or 1.1; the scaled one
+    (atol relative to max |out|, relative L2 error <= 1e-2) refuses it and
+    passes the exact output rounded to bf16, as the kernel writes it."""
+    import torch
+
+    smoke = _chip_smoke()
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 2, 2100, 32, generator=gen) for _ in range(3))
+    want = torch.softmax(q @ k.transpose(-1, -2) * 32**-0.5, dim=-1) @ v
+    assert 0.1 * float(want.abs().max()) < smoke.BF16_ATOL
+    got = (want * factor).to(torch.bfloat16)
+    smoke.compare(torch, got, want, "plain check", quiet=True)
+    if factor == 1.0:
+        smoke.compare(torch, got, want, "scaled check", quiet=True, scaled=True)
+    else:
+        with pytest.raises(smoke.SmokeFailure):
+            smoke.compare(torch, got, want, "scaled check", quiet=True, scaled=True)

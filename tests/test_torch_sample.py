@@ -44,7 +44,7 @@ def test_sample_slice_matches_jax(case_file, sampler):
     jvars = tuple(JVariable(n) for n in VARIABLES)
     tvars = tuple(Variable(n) for n in VARIABLES)
     jgm = jgrid.GridMap.from_metadata(j_read_metadata(case_file), jvars, cached=False)
-    tgm = tgrid.GridMap.from_metadata(read_metadata(case_file), tvars)
+    tgm = tgrid.GridMap.from_metadata(read_metadata(case_file), tvars, device="cpu")
 
     _, fields = build_case(n_frames=2, **CASE)
     cells = stack_channels(fields, tvars)  # (2, n_cells, 4): two frames as a batch

@@ -52,7 +52,7 @@ def case(tmp_path_factory):
     file = j_generate_case(tmp_path_factory.mktemp("task") / "case", n_frames=2, **CASE)
     jvars, tvars = (JVariable.U, JVariable.P), (Variable.U, Variable.P)
     jgm = jgrid.GridMap.from_metadata(j_read_metadata(file), jvars, cached=False)
-    tgm = tgrid.GridMap.from_metadata(read_metadata(file), tvars)
+    tgm = tgrid.GridMap.from_metadata(read_metadata(file), tvars, device="cpu")
     _, fields = build_case(n_frames=2, **CASE)
     cells = stack_channels(fields, tvars)  # (2, n_cells, 4): two frames as a batch
     return jgm, tgm, cells, field_stats(fields)
@@ -117,9 +117,22 @@ def test_eval_net_shares_the_parameters(case):
 def test_unknown_clip_mode_and_dtype_raise(case):
     stats = FieldStats(case[3])
     with pytest.raises(ValueError, match="clip_mode"):
-        DiffusionTask(tconfig.parse_cli_overrides(OVERRIDES + ["model.clip_mode=box"]).model, stats)
+        DiffusionTask(tconfig.parse_cli_overrides(OVERRIDES + ["model.clip_mode=box"]).model, stats, "cpu")
     with pytest.raises(ValueError, match="compute dtype"):
-        DiffusionTask(tconfig.parse_cli_overrides(OVERRIDES + ["model.compute_dtype=float16"]).model, stats)
+        DiffusionTask(
+            tconfig.parse_cli_overrides(OVERRIDES + ["model.compute_dtype=float16"]).model, stats, "cpu"
+        )
+
+
+def test_task_defaults_to_the_card(case):
+    """With no device named, the nets go to the card; without CUDA that
+    raises torch's own error instead of falling back to the CPU."""
+    cfg = tconfig.parse_cli_overrides(OVERRIDES).model
+    if torch.cuda.is_available():
+        assert next(DiffusionTask(cfg, FieldStats(case[3])).net.parameters()).is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            DiffusionTask(cfg, FieldStats(case[3]))
 
 
 def test_two_level_shapes_grid_path():
