@@ -50,21 +50,40 @@ Run from the repository root:  python3 chip_smoke.py
    bf16 and f32) with torch.profiler: wall and device-busy time, idle
    share, kernel time by group, launches and peak memory per forward, one
    JSON line each (after the launch counts are read).
-5. Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
+6. Train steps: the paper's run (``model.compute_dtype=bfloat16
+   model.ema_decay=0.999`` over the defaults: dim 32, 4 levels, T=500,
+   batch 6, remat, RAdam with exp decay, clip 0.1) from
+   ``parse_cli_overrides`` through ``DiffusionTask.training_step`` on 6
+   frames of the shapes case, draws from a ``torch.Generator``: 2 warm-up
+   and 5 timed steps (CUDA events), losses, peak memory, launches per step
+   (checked), one profiled step (device time by kernel group and by phase:
+   forward, remat recompute, the chain's and the attention's plain
+   backward, other backward, optimizer + EMA).  Checks: finite losses, a
+   gradient for every parameter, every parameter and EMA leaf changed, and
+   one step's gradients against the plain path (the chain's gate closed)
+   from the same parameters and draws: cosine >= 0.999 and each leaf's
+   relative L2 error <= 3e-2 (or 3x two plain runs' difference), the
+   gradients x 1.1 refused.  Then the same at 2 levels (4 timed steps),
+   where flash_attention launches, its gradients held against the plain
+   attention's.
+7. Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
    Every kernel's entry has its time, its bound (``bound_ms``: the larger of
    its bytes over the memory rate and its operations over the peak rate of
    their kind, from this run's shapes; ``bound_by``, ``bound_kind``), the
    plain version's time, the library call's (``library_ms``, or null where
    no one torch call computes the same function) and its launches on each
-   main path (``launches_by_path``).
+   main path (``launches_by_path``: per sampler run, and per train step on
+   the train paths).
 
 Any failure exits non-zero before the last line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -207,6 +226,14 @@ def profile_forwards(torch, label: str, fn, n: int = 3) -> dict:
         row["device"] = "not measured (the profiler recorded no device activity)"
         log(f"  profile {label}: {row}")
         return row
+    row.update(device_summary(events, wall, n))
+    log(f"  profile {label}: {json.dumps(row)}")
+    return row
+
+
+def device_summary(events, wall: float, n: int) -> dict:
+    """Per call: device busy time (the union of the kernels' intervals), its
+    idle share of ``wall`` (ms per call), and kernel time by group."""
     busy, end = 0.0, float("-inf")
     for e in sorted(events, key=lambda e: e.time_range.start):
         start = max(e.time_range.start, end)
@@ -219,9 +246,7 @@ def profile_forwards(torch, label: str, fn, n: int = 3) -> dict:
         group = next((name for name, keys in PROFILE_GROUPS if any(k in e.name for k in keys)),
                      "other elementwise, copies, norms")
         groups[group] += (e.time_range.end - e.time_range.start) / 1e3 / n
-    row.update(busy_ms=busy / 1e3 / n, idle_share=1 - busy / 1e3 / n / wall, kernel_ms=groups)
-    log(f"  profile {label}: {json.dumps(row)}")
-    return row
+    return {"busy_ms": busy / 1e3 / n, "idle_share": 1 - busy / 1e3 / n / wall, "kernel_ms": groups}
 
 
 def paired_ratio(torch, fn_a, fn_b, rounds: int) -> float:
@@ -670,17 +695,20 @@ def conv3d_phase(torch, ck):
     }
 
 
-def shapes_case(torch):
-    """The in-memory shapes case: metadata, one frame of u, p as cells
-    (n_cells, 4), and its FieldStats (u, p, norm(u) over that frame)."""
+def shapes_case(torch, n_frames: int = 1):
+    """The in-memory shapes case: metadata, its first frame of u, p as cells
+    (n_cells, 4), and its FieldStats (u, p, norm(u) over the frames); with
+    ``n_frames`` > 1 the frames (n_frames, n_cells, 4) in place of the
+    first."""
     import numpy as np
 
     from generative_turbulence_tpu_torch.data.schema import FieldStats
     from generative_turbulence_tpu_torch.data.synthetic import build_case
     from generative_turbulence_tpu_torch.data.variables import Variable, stack_channels
 
-    meta, fields = build_case(cell_counts=(192, 48, 48), n_frames=1, seed=0)
-    frame = stack_channels(fields, (Variable.U, Variable.P))[0]
+    meta, fields = build_case(cell_counts=(192, 48, 48), n_frames=n_frames, seed=0)
+    frames = stack_channels(fields, (Variable.U, Variable.P))
+    frame = frames[0] if n_frames == 1 else frames
     u = fields[Variable.U].reshape(-1, 3)
     stats = {}
     for key, values in (("u", u), ("p", fields[Variable.P].reshape(-1, 1)),
@@ -853,6 +881,224 @@ def two_level_phase(torch, ck, profiles):
     return launches, timings
 
 
+# The paper's run (config/shapes_diffusion.yaml): the defaults of
+# ModelConfig (dim 32, 4 levels, T = 500, batch 6, remat, RAdam with exp
+# decay) and TrainerConfig (clip 0.1), in bf16, with the EMA on.
+TRAIN_OVERRIDES = ["model.compute_dtype=bfloat16", "model.ema_decay=0.999"]
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+TRAIN_MAX_STEPS = 10_000  # the LR schedule's length (a few epochs of the shapes data)
+# Chain launches per train step: the 4 engaged blocks' forwards, plus the
+# recompute of the three inside the U-Net's remat (down_0, down_1, up_0);
+# decode_resnet is outside it, as in flax.  (A custom Function packs what
+# it saves only after its forward, so checkpoint's early stop comes after
+# the kernels.)
+TRAIN_CHAIN_LAUNCHES = 7
+TRAIN_FLASH_LAUNCHES = {4: 0, 2: 1}  # the centre attention is not remat'd
+MAX_GRAD_REL_L2, MIN_GRAD_COS = 3e-2, 0.999
+# Where the device time of a train step goes, by the innermost profiler
+# range or autograd node that launched each kernel (first match wins).
+TRAIN_PHASES = [
+    ("optimizer + EMA", ("train/optimizer",)),
+    ("remat recompute", ("remat recompute",)),
+    ("chain backward (plain)", ("_FusedDoubleConvBackward",)),
+    ("attention backward (plain)", ("_FlashAttentionBackward",)),
+    ("other backward", ("autograd::engine::evaluate_function", "train/backward")),
+    ("forward", ("train/loss",)),
+]
+
+
+def phase_of(event) -> str:
+    """The phase of a profiler CPU event: the first of ``TRAIN_PHASES``
+    whose name fragment any of its ancestors (itself included) carries."""
+    names = []
+    while event is not None:
+        names.append(event.name)
+        event = event.cpu_parent
+    for phase, keys in TRAIN_PHASES:
+        if any(k in name for name in names for k in keys):
+            return phase
+    return "unattributed"
+
+
+def device_time_by_phase(events) -> dict:
+    """ms of each phase: the device kernels each CPU event launched (its
+    ``kernels``) attributed to ``phase_of`` that event."""
+    from torch.autograd import DeviceType
+
+    out = {phase: 0.0 for phase, _ in TRAIN_PHASES}
+    out["unattributed"] = 0.0
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.kernels:
+            out[phase_of(e)] += sum(k.duration for k in e.kernels) / 1e3
+    return out
+
+
+def train_task(torch, levels: int):
+    """The paper's training configuration at ``levels`` U-Net levels, its
+    seeded task on the card, the shapes grid and one batch of its frames."""
+    from generative_turbulence_tpu_torch.data.grid import GridMap
+    from generative_turbulence_tpu_torch.training.config import parse_cli_overrides
+    from generative_turbulence_tpu_torch.training.diffusion_task import DiffusionTask
+
+    overrides = TRAIN_OVERRIDES + ([f"model.u_net_levels={levels}"] if levels != 4 else [])
+    cfg = parse_cli_overrides(overrides).resolved()
+    meta, frames, stats = shapes_case(torch, n_frames=cfg.model.batch_size)
+    task = DiffusionTask(cfg.model, stats, "cuda", max_train_steps=TRAIN_MAX_STEPS,
+                         gradient_clip_val=cfg.trainer.gradient_clip_val)
+    task.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    grid = GridMap.from_metadata(meta, task.variables, device="cuda")
+    return cfg, task, grid, torch.as_tensor(frames, device="cuda")
+
+
+def step_gradients(torch, task, cells, grid, seed: int) -> list:
+    """One step's gradients (no update) from the task's current parameters
+    and the draws of ``seed``."""
+    from generative_turbulence_tpu_torch.diffusion.gaussian import GeneratorNoise
+
+    noise = GeneratorNoise(torch.Generator(device=cells.device).manual_seed(seed), cells.device)
+    params = list(task.net.parameters())
+    loss = task.diffusion.loss(task._eps_fn(grid), task._model_input(cells, grid), grid, noise)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    check(all(g is not None for g in grads), "a parameter got no gradient")
+    return [g.float() for g in grads]
+
+
+def grad_agreement(torch, got, want, names) -> dict:
+    """Cosine similarity over all leaves and each leaf's relative L2 error:
+    the worst leaf and its error."""
+    flat_g, flat_w = torch.cat([g.flatten() for g in got]), torch.cat([w.flatten() for w in want])
+    cos = float(torch.nn.functional.cosine_similarity(flat_g, flat_w, dim=0))
+    errs = [float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w).clamp_min(1e-30))
+            for g, w in zip(got, want)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    return {"cos": cos, "worst_rel_l2": errs[worst], "worst_leaf": names[worst]}
+
+
+def hold_gradients(torch, task, cells, grid, label: str, plain_path) -> dict:
+    """The kernels' gradients against the plain path's (``plain_path``: a
+    context that closes the kernels' gate), same parameters and draws:
+    cosine >= 0.999 and every leaf's relative L2 error <= 3e-2, or 3x the
+    worst leaf's difference between two plain runs where that is larger;
+    the kernels' gradients x 1.1 must be refused."""
+    names = [n for n, _ in task.net.named_parameters()]
+    got = step_gradients(torch, task, cells, grid, seed=7)
+    with plain_path():
+        want = step_gradients(torch, task, cells, grid, seed=7)
+        again = step_gradients(torch, task, cells, grid, seed=7)
+    noise = grad_agreement(torch, again, want, names)
+    bound = max(MAX_GRAD_REL_L2, 3 * noise["worst_rel_l2"])
+    row = grad_agreement(torch, got, want, names)
+    scaled = grad_agreement(torch, [1.1 * g for g in got], want, names)
+    log(f"  {label} gradients vs the plain path: cos {row['cos']!r}, worst leaf {row['worst_leaf']} "
+        f"rel_l2 {row['worst_rel_l2']!r} (bound {bound!r}; two plain runs: worst {noise['worst_leaf']} "
+        f"{noise['worst_rel_l2']!r}, cos {noise['cos']!r}); gradients x 1.1: rel_l2 {scaled['worst_rel_l2']!r}")
+    check(row["cos"] >= MIN_GRAD_COS, f"{label}: gradient cosine {row['cos']} < {MIN_GRAD_COS}")
+    check(row["worst_rel_l2"] <= bound, f"{label}: {row['worst_leaf']} gradient rel_l2 {row['worst_rel_l2']} > {bound}")
+    check(scaled["worst_rel_l2"] > bound, f"{label}: the gradients x 1.1 pass the bound {bound}")
+    return {**row, "bound": bound, "plain_vs_plain": noise, "x1.1_worst_rel_l2": scaled["worst_rel_l2"]}
+
+
+@contextlib.contextmanager
+def patched(obj, name: str, value):
+    saved = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
+def train_phase(torch, ck, levels: int, timed: int) -> tuple:
+    """``timed`` train steps (after 2 warm-up steps) of the paper's run at
+    ``levels`` U-Net levels on 6 frames of the shapes case: times, losses,
+    peak memory, launches per step, one profiled step, and the gradients
+    against the plain path."""
+    from generative_turbulence_tpu_torch.diffusion.gaussian import GeneratorNoise
+    from generative_turbulence_tpu_torch.ops import attention
+
+    tic = time.perf_counter()
+    cfg, task, grid, cells = train_task(torch, levels)
+    m = cfg.model
+    log(f"[6] train step, {levels} levels: {' '.join(TRAIN_OVERRIDES)}; dim {m.dim}, T={m.timesteps}, batch "
+        f"{cells.shape[0]}, {m.compute_dtype}, remat {m.remat}, {m.optimizer} lr {m.learning_rate} "
+        f"({m.lr_decay}), clip {cfg.trainer.gradient_clip_val}, EMA {m.ema_decay}; {task.n_params()} "
+        f"parameters; set-up {time.perf_counter() - tic!r} s")
+    before = {n: p.detach().clone() for n, p in task.net.named_parameters()}
+    noise = GeneratorNoise(torch.Generator(device="cuda").manual_seed(1), "cuda")
+    losses = [task.training_step(cells, grid, noise)["train/loss"] for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    ema_before = {n: e.clone() for n, e in task.ema.items()}
+    ck.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(timed + 1)]
+    events[0].record()
+    for i in range(timed):
+        losses.append(task.training_step(cells, grid, noise)["train/loss"])
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCH_COUNTS)
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(v) for v in losses]
+    log(f"  step ms {step_ms!r} (median {statistics.median(step_ms)!r}); peak memory {peak!r} GiB; "
+        f"losses {losses!r}; launches over {timed} steps {launches}")
+    check(all(math.isfinite(v) for v in losses), f"{levels} levels: non-finite loss")
+    missing = [n for n, p in task.net.named_parameters() if p.grad is None]
+    check(not missing, f"{levels} levels: no gradient for {missing[:5]}")
+    same = [n for n, p in task.net.named_parameters() if torch.equal(p.detach(), before[n])]
+    check(not same, f"{levels} levels: parameters unchanged by the steps: {same[:5]}")
+    same = [n for n, e in task.ema.items() if torch.equal(e, ema_before[n])]
+    check(not same, f"{levels} levels: EMA leaves unchanged by the timed steps: {same[:5]}")
+    log(f"  every parameter got a gradient and changed; every EMA leaf changed")
+    expected = {name: TRAIN_CHAIN_LAUNCHES * timed for name in CHAIN_KERNELS}
+    expected.update(flash_attention=TRAIN_FLASH_LAUNCHES[levels] * timed, conv3d_3x3=0)
+    for name, n in expected.items():
+        check(launches[name] == n, f"{levels}-level train: {name} launched {launches[name]} times, expected {n}")
+    log(f"  launches per step: {({k: v / timed for k, v in launches.items()})} (as expected)")
+
+    profile = profile_train_step(torch, f"train step {levels} levels", lambda: task.training_step(cells, grid, noise))
+    if levels == 4:
+        plain = lambda: patched(ck, "MIN_SPATIAL_FOR_FUSED_BLOCK", 1 << 62)  # noqa: E731
+    else:
+        plain = lambda: patched(attention, "FLASH_MIN_TOKENS", 1 << 62)  # noqa: E731
+    grads = hold_gradients(torch, task, cells, grid, f"{levels}-level step", plain)
+    row = {"levels": levels, "step_ms": step_ms, "median_step_ms": statistics.median(step_ms),
+           "peak_gib": peak, "losses": losses, "launches_per_step": {k: v / timed for k, v in launches.items()},
+           "gradients": grads, "n_params": task.n_params()}
+    return launches, row, profile
+
+
+def profile_train_step(torch, label: str, fn) -> dict:
+    """torch.profiler over one train step (after the timed ones): wall, device
+    busy time and idle share, kernel time by group and by phase (forward,
+    backward, remat recompute, the chain's and the attention's plain
+    backward, optimizer + EMA), launches and peak memory.  Logged and
+    returned."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tic = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - tic) * 1e3
+    events = prof.events()
+    row = {"profile": label, "wall_ms": wall, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    row["launches"] = len(device)
+    if not device:
+        row["device"] = "not measured (the profiler recorded no device activity)"
+        log(f"  profile {label}: {row}")
+        return row
+    row.update(device_summary(device, wall, 1))
+    row["kernel_ms_by_phase"] = device_time_by_phase(events)
+    log(f"  profile {label}: {json.dumps(row)}")
+    return row
+
+
+
 def main() -> int:
     if not (ROOT / "generative_turbulence_tpu_torch").is_dir():
         log("error: run from a checkout of the repository (generative_turbulence_tpu_torch/ missing)")
@@ -887,18 +1133,28 @@ def main() -> int:
         profiles = []
         launches4, timings = main_path_phase(torch, ck, profiles)
         launches2, timings2 = two_level_phase(torch, ck, profiles)
+        train_launches4, train4, train_profile4 = train_phase(torch, ck, 4, TRAIN_TIMED)
+        train_launches2, train2, train_profile2 = train_phase(torch, ck, 2, 4)
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1
     timings.update(timings2)
-    # Launches on the main paths (the 4-level and the 2-level runs), each
-    # counted from 0 just before the path's sampler calls.
+    profiles += [train_profile4, train_profile2]
+    # Launches on the main paths (the 4-level and the 2-level sampler runs
+    # and train steps), each counted from 0 just before the path runs; the
+    # train paths per step.
     for entry in kernels:
         name = entry["name"]
-        entry["launches"] = launches4[name] + launches2[name]
-        entry["launches_by_path"] = {"4_levels": launches4[name], "2_levels": launches2[name]}
-    log(f"[5] card: {smi}")
-    print(json.dumps({"blocks": block_rows, "main_path": timings, "profiles": profiles}))
+        entry["launches"] = (launches4[name] + launches2[name]
+                             + train_launches4[name] + train_launches2[name])
+        entry["launches_by_path"] = {
+            "4_levels": launches4[name], "2_levels": launches2[name],
+            "train_4_levels": train4["launches_per_step"][name],
+            "train_2_levels": train2["launches_per_step"][name],
+        }
+    log(f"[7] card: {smi}")
+    print(json.dumps({"blocks": block_rows, "main_path": timings, "profiles": profiles,
+                      "train": [train4, train2]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

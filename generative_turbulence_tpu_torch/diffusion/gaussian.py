@@ -1,6 +1,6 @@
-"""Gaussian diffusion, sampling half: forward process, reconstructions, and
-the DDPM (ancestral) and DDIM samplers as plain Python loops over the dense
-state ``(B, X, Y, Z, F)``.
+"""Gaussian diffusion: forward process, reconstructions, the training loss,
+and the DDPM (ancestral) and DDIM samplers as plain Python loops over the
+dense state ``(B, X, Y, Z, F)``.
 
 Port of ``generative_turbulence_tpu/diffusion/gaussian.py``.  Boundary
 conditions: with ``noise_bcs=False`` only in-domain cells are noised and the
@@ -12,7 +12,14 @@ The samplers draw standard normals from a ``noise`` source, a callable
 ``noise(shape) -> tensor``, in the JAX sampler's order: x_T first, then at
 each step ``noise`` and then (with ``noise_bcs``) ``bc_noise``; DDIM draws
 ``noise`` even at eta = 0.  Replaying JAX's draws through it reproduces the
-JAX samplers.  The training losses are not ported yet.
+JAX samplers.
+
+The training loss (``loss``, ``p_losses``) draws from the same kind of
+source: ``loss`` draws the timesteps ``noise.randint(B, T)`` (uniform over
+[0, T), one per batch element) and then the noise of ``x_start``'s shape, in
+the JAX loss's order.  It is the masked mean over in-domain cells of the l2
+or l1 error of the epsilon (or v) head, optionally min-SNR weighted, plus
+the weighted ELBO term with learned variances.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..data.grid import GridMap
+from ..data.grid import GridMap, masked_mean
 from .schedules import beta_schedule
 
 EpsFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -39,11 +46,31 @@ class GeneratorNoise:
     def __call__(self, shape: Sequence[int]) -> torch.Tensor:
         return torch.randn(tuple(shape), generator=self.generator, device=self.device)
 
+    def randint(self, n: int, high: int) -> torch.Tensor:
+        """``n`` int64 draws, uniform over [0, high)."""
+        return torch.randint(0, high, (n,), generator=self.generator, device=self.device)
+
 
 def _bcast(coefs: torch.Tensor, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """Gather per-timestep coefficients and broadcast right against ``like``."""
     vals = coefs[t]
     return vals.reshape(vals.shape + (1,) * (like.dim() - vals.dim()))
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    """KL(N(mean1, exp(logvar1)) || N(mean2, exp(logvar2))), elementwise."""
+    return 0.5 * (
+        -1.0
+        + logvar2
+        - logvar1
+        + torch.exp(logvar1 - logvar2)
+        + (mean1 - mean2) ** 2 * torch.exp(-logvar2)
+    )
+
+
+def normal_log_likelihood(x, mean, log_var):
+    log_2pi = float(np.log(2 * np.pi))
+    return -0.5 * (log_var + log_2pi + (x - mean) ** 2 * torch.exp(-log_var))
 
 
 class ModelPrediction(NamedTuple):
@@ -107,10 +134,17 @@ class GaussianDiffusion:
     """Diffusion process configuration + sampling math (stateless)."""
 
     constants: DiffusionConstants
+    loss_type: str = "l2"  # or "l1"
     clip_denoised: bool = False
     noise_bcs: bool = True
     learned_variances: bool = False
+    # weight of the ELBO term (with learned variances; None = no term)
+    elbo_weight: Optional[float] = None
+    detach_elbo_mean: bool = True
     parameterization: str = "epsilon"  # or "v"
+    # None, or "min-snr-<gamma>": per-sample weight min(SNR, gamma) / SNR
+    # (epsilon) or / (SNR + 1) (v)
+    loss_weighting: Optional[str] = None
     # clip_denoised bounds in normalized space: None = [-1, 1]; otherwise
     # per-channel (lo, hi) arrays of shape (F,).
     clip_bounds: Optional[tuple] = None
@@ -122,20 +156,32 @@ class GaussianDiffusion:
         *,
         beta_schedule: str = "log-snr-linear",
         timesteps: int = 500,
+        loss_type: str = "l2",
         clip_denoised: bool = False,
         noise_bcs: bool = True,
         learned_variances: bool = False,
+        elbo_weight: Optional[float] = None,
+        detach_elbo_mean: bool = True,
         parameterization: str = "epsilon",
+        loss_weighting: Optional[str] = None,
         clip_bounds: Optional[tuple] = None,
     ) -> "GaussianDiffusion":
         if parameterization not in ("epsilon", "v"):
             raise ValueError(f"Unknown parameterization {parameterization!r}")
+        if loss_type not in ("l2", "l1"):
+            raise ValueError(f"Invalid loss type {loss_type!r}")
+        if loss_weighting is not None and not loss_weighting.startswith("min-snr-"):
+            raise ValueError(f"Unknown loss weighting {loss_weighting!r}")
         return GaussianDiffusion(
             constants=DiffusionConstants.create(beta_schedule, timesteps),
+            loss_type=loss_type,
             clip_denoised=clip_denoised,
             noise_bcs=noise_bcs,
             learned_variances=learned_variances,
+            elbo_weight=elbo_weight,
+            detach_elbo_mean=detach_elbo_mean,
             parameterization=parameterization,
+            loss_weighting=loss_weighting,
             clip_bounds=clip_bounds,
         )
 
@@ -182,6 +228,11 @@ class GaussianDiffusion:
     # s = sqrt(1 - acp)) the network predicts v = a eps - s x0, so
     # x0 = a x_t - s v and eps = s x_t + a v.
 
+    def v_from_start_and_noise(self, x_start, t, noise):
+        a = self._at("sqrt_alphas_cumprod", t, x_start)
+        s = self._at("sqrt_one_minus_alphas_cumprod", t, x_start)
+        return a * noise - s * x_start
+
     def predict_start_from_v(self, x_t, t, v):
         a = self._at("sqrt_alphas_cumprod", t, x_t)
         s = self._at("sqrt_one_minus_alphas_cumprod", t, x_t)
@@ -226,6 +277,54 @@ class GaussianDiffusion:
 
         mean, _ = self.q_posterior(x_start, x_t, t)
         return ModelPrediction(pred_noise, x_start, mean, log_var, raw)
+
+    # ---- training loss -----------------------------------------------------
+
+    def p_losses(
+        self, eps_fn: EpsFn, x_start: torch.Tensor, t: torch.Tensor, grid: GridMap, noise: NoiseFn
+    ) -> torch.Tensor:
+        """The training loss at timesteps ``t`` (B,), with one draw of
+        ``noise`` of ``x_start``'s shape: a scalar tensor."""
+        inside = grid.inside_mask[..., None]
+        eps = noise(x_start.shape).to(x_start.dtype)
+        x_t = self.q_sample(x_start, t, eps)
+        if not self.noise_bcs:
+            x_t = torch.where(inside, x_t, x_start)
+
+        pred = self.model_predictions(eps_fn, x_t, t, grid)
+
+        target = self.v_from_start_and_noise(x_start, t, eps) if self.parameterization == "v" else eps
+        if self.loss_type == "l2":
+            err = (pred.raw - target) ** 2
+        elif self.loss_type == "l1":
+            err = torch.abs(pred.raw - target)
+        else:
+            raise ValueError(f"Invalid loss type {self.loss_type!r}")
+
+        # Mean over the in-domain cells of each sample.
+        per_sample = masked_mean(err, grid)
+        if self.loss_weighting is not None:
+            gamma = float(self.loss_weighting[len("min-snr-"):])
+            acp = self._at("alphas_cumprod", t, per_sample)
+            snr = acp / (1.0 - acp)
+            denom = snr + 1.0 if self.parameterization == "v" else snr
+            per_sample = per_sample * (torch.clamp(snr, max=gamma) / denom)
+        loss = per_sample.mean()
+
+        if self.elbo_weight is not None and self.learned_variances:
+            true_mean, true_log_var = self.q_posterior(x_start, x_t, t)
+            model_mean = pred.mean.detach() if self.detach_elbo_mean else pred.mean
+            kl = normal_kl(true_mean, true_log_var, model_mean, pred.log_var)
+            log_lk = normal_log_likelihood(x_t, model_mean, pred.log_var)
+            elbo = torch.where(t == 0, -masked_mean(log_lk, grid), masked_mean(kl, grid))
+            loss = loss + self.elbo_weight * elbo.mean()
+        return loss
+
+    def loss(self, eps_fn: EpsFn, x_start: torch.Tensor, grid: GridMap, noise) -> torch.Tensor:
+        """Draw t ~ U[0, T) per batch element (``noise.randint``), then the
+        noise (``noise(shape)``), and return the training loss."""
+        t = noise.randint(x_start.shape[0], self.num_timesteps).to(x_start.device)
+        return self.p_losses(eps_fn, x_start, t, grid, noise)
 
     # ---- ancestral (DDPM) sampling ------------------------------------------
 

@@ -7,17 +7,23 @@ has flax semantics: parameters stay f32 and each layer casts its input and
 weights to ``dtype`` (None computes in the promoted input/parameter type).
 
 The ResnetBlock core takes the hand-written Hopper chain
-``ops.cuda_kernels.fused_double_conv_block`` where its gate holds.
+``ops.cuda_kernels.fused_double_conv_block`` where its gate holds.  With
+``remat`` the U-Net runs each ResnetBlock under ``torch.utils.checkpoint``
+while gradients are recorded (flax's ``nn.remat``): the backward recomputes
+the block's forward instead of keeping its activations.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import cuda_kernels
 from ..ops.attention import efficient_linear_attention, multihead_attention
@@ -307,7 +313,8 @@ class UNet(nn.Module):
     the skip's exact shape.  The centre is resnet -> prenorm-residual
     attention -> resnet.  Blocks are registered as ``down_{i}``,
     ``center_in``, ``center_norm``, ``center_attention``, ``center_out`` and
-    ``up_{i}``, the flax names.
+    ``up_{i}``, the flax names.  ``remat`` rematerializes the ResnetBlocks
+    when gradients are recorded.
     """
 
     def __init__(
@@ -320,9 +327,11 @@ class UNet(nn.Module):
         norm_type: str = "group",
         attention_kind: str = "full",
         dtype: Optional[torch.dtype] = None,
+        remat: bool = False,
     ):
         super().__init__()
         self.levels = levels
+        self.remat = remat
         block = lambda cin, cout: ResnetBlock(cin, cout, c_features, actfn, norm_type, dtype)  # noqa: E731
         ch = in_features
         for i in range(levels):
@@ -338,19 +347,27 @@ class UNet(nn.Module):
             self.add_module(f"up_{i}", block(ch + dim * 2 ** (i + 1), dim * 2**i))
             ch = dim * 2**i
 
+    def _block(self, name: str, x: torch.Tensor, c: Optional[torch.Tensor]) -> torch.Tensor:
+        block = getattr(self, name)
+        if self.remat and torch.is_grad_enabled():
+            # The recompute runs in a profiler range of its own.
+            contexts = lambda: (contextlib.nullcontext(), record_function("remat recompute"))  # noqa: E731
+            return checkpoint(block, x, c, use_reentrant=False, context_fn=contexts)
+        return block(x, c)
+
     def forward(self, x: torch.Tensor, c: Optional[torch.Tensor] = None) -> torch.Tensor:
         skips = []
         for i in range(self.levels):
-            x = getattr(self, f"down_{i}")(x, c)
+            x = self._block(f"down_{i}", x, c)
             skips.append(x)
             x = resize_trilinear(x, downsample_size(x.shape[-4:-1]))
 
-        x = self.center_in(x, c)
+        x = self._block("center_in", x, c)
         x = x + self.center_attention(self.center_norm(x))
-        x = self.center_out(x, c)
+        x = self._block("center_out", x, c)
 
         for i in reversed(range(self.levels)):
             skip = skips.pop()
             x = resize_trilinear(x, skip.shape[-4:-1])
-            x = getattr(self, f"up_{i}")(torch.cat([x, skip], dim=-1), c)
+            x = self._block(f"up_{i}", torch.cat([x, skip], dim=-1), c)
         return x

@@ -8,7 +8,9 @@ resnet + 1x1 decode head computed in f32.
 
 Unlike flax, torch modules fix their input widths at construction, so the
 model takes ``in_features`` and ``c_global_features``, and a model with
-``conditioning`` must be called with ``cell_types``.
+``conditioning`` must be called with ``cell_types``.  ``remat`` (flax's
+``nn.remat`` of the U-Net's ResnetBlocks) takes effect only while gradients
+are recorded.
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ class DenoisingModel(nn.Module):
         in_features: Optional[int] = None,
         c_global_features: int = 0,
         dtype: Optional[torch.dtype] = None,
+        remat: bool = False,
     ):
         super().__init__()
         actfn = ACTIVATIONS[actfn_name]
@@ -103,8 +106,9 @@ class DenoisingModel(nn.Module):
         if conditioning is not None:
             self.encode_c_local = Conv(conditioning.out_dim, dim, 1, dtype=dtype)
             unet_in += dim
+        # As in flax, remat covers the U-Net's blocks, not decode_resnet.
         self.u_net = UNet(
-            unet_in, dim, u_net_levels, c_dim, actfn, norm_type, attention_kind, dtype
+            unet_in, dim, u_net_levels, c_dim, actfn, norm_type, attention_kind, dtype, remat
         )
         self.decode_resnet = ResnetBlock(dim, dim, c_dim, actfn, norm_type, dtype)
         self.decode_out = Conv(dim, out_features, 1, dtype=torch.float32)

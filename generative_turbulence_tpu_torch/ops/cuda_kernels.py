@@ -28,7 +28,8 @@ code calls it, as in the JAX package.  ``flash_attention`` is softmax
 attention over (B, H, N, D) tokens with the online softmax inside one kernel
 (``csrc/flash_attention.cu``: ``wgmma`` products fed by a TMA-filled ring of
 K/V stages in bf16, register-blocked FMA in f32); ``ops.attention.multihead_attention``
-takes it from ``FLASH_MIN_TOKENS`` tokens up.
+takes it from ``FLASH_MIN_TOKENS`` tokens up; its backward is autograd of
+its plain version.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/kernels/`` (one ``nvcc`` per source, all started together, then one
@@ -440,6 +441,43 @@ def _flash_attention_plain(q, k, v):
     return torch.einsum("bhnm,bhmd->bhnd", weights, v.float()).to(q.dtype)
 
 
+def _flash_attention_kernel(q, k, v, strides):
+    """Launches the kernel on checked q, k, v: the output, contiguous."""
+    B, H, N, D = q.shape
+    out = torch.empty((B, H, N, D), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out  # nothing to launch
+    lib = _library()
+    status = lib.gt_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.float32), B, H, N, D, *strides,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _check_status(status, "flash_attention")
+    LAUNCH_COUNTS["flash_attention"] += 1
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the kernel (its plain version on a CPU tensor).  Backward:
+    autograd of the plain version on the saved q, k, v, as the JAX package
+    differentiates its XLA attention; no kernel runs in the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, strides):
+        ctx.save_for_backward(q, k, v)
+        if strides is None:
+            return _flash_attention_plain(q, k, v)
+        return _flash_attention_kernel(q, k, v, strides)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = _flash_attention_plain(*leaves)
+            return (*torch.autograd.grad(out, leaves, grad), None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T / sqrt(D)) v over q, k, v (B, H, N, D) -> (B, H, N, D).
 
@@ -450,9 +488,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     and every pointer and stride 16-byte aligned.  The output is contiguous,
     in q's type.  B * H * ceil(N / 128) must stay below 2^31 (the kernels'
     work items).  A CPU tensor runs ``_flash_attention_plain``.
+    Differentiable in q, k and v: the gradients are those of
+    ``_flash_attention_plain``.
     """
     if not q.is_cuda:
-        return _flash_attention_plain(q, k, v)
+        return _FlashAttention.apply(q, k, v, None)
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, N, D), got shape {tuple(q.shape)}")
     B, H, N, D = q.shape
@@ -479,18 +519,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         ):
             raise ValueError(f"{name}: pointer and strides must be 16-byte aligned, got {t.stride()}")
         strides += [t.stride(0), t.stride(1), t.stride(2)]
-    out = torch.empty((B, H, N, D), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out  # nothing to launch
-    lib = _library()
-    status = lib.gt_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.float32), B, H, N, D, *strides,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _check_status(status, "flash_attention")
-    LAUNCH_COUNTS["flash_attention"] += 1
-    return out
+    return _FlashAttention.apply(q, k, v, tuple(strides))
 
 
 # ---------------------------------------------------------------------------

@@ -1,24 +1,29 @@
-"""The diffusion task, sampling half.
+"""The diffusion task: training step, diagnostics and sampling.
 
-Port of the sampling parts of ``generative_turbulence_tpu/training/
-diffusion_task.py``: ``DiffusionTask`` is built from a ``ModelConfig`` and
-the training-set ``FieldStats`` and wires the normalizer, the conditioning,
-the epsilon-network (and its eval-dtype twin) and ``GaussianDiffusion``
-together; ``DiffusionTask.sample`` follows ``cfg.sampler``.  The free
-``sample`` function is the sampling step itself (``_sample_fn``): embed the
-cells into the dense grid, normalize, run a sampler with the
-epsilon-network, denormalize, and gather the cells back.
+Port of ``generative_turbulence_tpu/training/diffusion_task.py``:
+``DiffusionTask`` is built from a ``ModelConfig`` and the training-set
+``FieldStats`` and wires the normalizer, the conditioning, the
+epsilon-network (and its eval-dtype twin), ``GaussianDiffusion`` and the
+optimizer together.  ``training_step`` takes one optimizer step on the
+diffusion loss (with gradient accumulation, clipping and the warm-up EMA);
+``eval_diagnostics`` gives the masked epsilon-loss at 8 timesteps;
+``DiffusionTask.sample`` follows ``cfg.sampler`` with the EMA parameters
+when ``cfg.ema_decay > 0``.  The free ``sample`` function is the sampling
+step itself (``_sample_fn``): embed the cells into the dense grid,
+normalize, run a sampler with the epsilon-network, denormalize, and gather
+the cells back.
 
-Not ported yet: the optimizer, ``train_step``, EMA, ``eval_step``, the
-sample stores and the metrics.
+Not ported yet: ``eval_step``, the sample stores and the metrics.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+from torch.func import functional_call
+from torch.profiler import record_function
 
 from ..data.grid import GridMap, embed_cells, gather_cells
 from ..data.schema import FieldStats
@@ -29,6 +34,7 @@ from ..models.normalization import Normalizer
 from ..models.unet import DenoisingModel
 from ..toolchain.from_flax import torch_state_dict_from_flax
 from .config import ModelConfig
+from .optimizers import OptState, build_optimizer
 
 
 @torch.inference_mode()
@@ -89,15 +95,29 @@ def _share_parameters(dst: torch.nn.Module, src: torch.nn.Module) -> None:
 
 
 class DiffusionTask:
-    """The sampling half of the JAX package's ``DiffusionTask``.
+    """The JAX package's ``DiffusionTask`` without its eval stores.
 
-    ``net`` computes in ``cfg.compute_dtype``; ``eval_net`` in
+    ``net`` computes in ``cfg.compute_dtype`` and trains; ``eval_net`` in
     ``cfg.eval_compute_dtype`` (None = the same) and samples.  Both hold the
-    same parameters, in f32, on ``device``: set them with
-    ``load_flax_params``, ``net.load_state_dict`` or ``net.init_weights``.
+    same parameters, in f32, on ``device``: set them with ``init_weights``
+    or ``load_flax_params``.  The train state beside them is the micro-step
+    count ``step``, the optimizer state ``opt_state`` and the f32 EMA
+    parameters ``ema`` (None with ``cfg.ema_decay == 0``); ``init_state``
+    makes it from the current parameters (``init_weights`` and
+    ``load_flax_params`` do, and so does the first ``training_step``).
+    ``max_train_steps`` is the learning-rate schedule's length in optimizer
+    updates, ``gradient_clip_val`` the global-norm clip.
     """
 
-    def __init__(self, cfg: ModelConfig, stats: FieldStats, device="cuda"):
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        stats: FieldStats,
+        device="cuda",
+        *,
+        max_train_steps: int = 1,
+        gradient_clip_val: Optional[float] = 0.1,
+    ):
         self.cfg = cfg
         self.variables = Variable.parse_tuple(cfg.variables)
         if Variable.U not in self.variables:
@@ -128,6 +148,7 @@ class DiffusionTask:
                 conditioning=conditioning,
                 in_features=n_features,
                 dtype=net_dtype,
+                remat=cfg.remat,
             ).to(device)
 
         dtype = _net_dtype(cfg.compute_dtype)
@@ -153,17 +174,152 @@ class DiffusionTask:
         self.diffusion = GaussianDiffusion.create(
             beta_schedule=cfg.beta_schedule,
             timesteps=cfg.timesteps,
+            loss_type=cfg.loss,
             clip_denoised=cfg.clip_denoised,
             noise_bcs=cfg.noise_bcs,
             learned_variances=cfg.learned_variances,
+            elbo_weight=cfg.elbo_weight if cfg.learned_variances else None,
+            detach_elbo_mean=cfg.detach_elbo_mean,
             parameterization=cfg.parameterization,
+            loss_weighting=cfg.loss_weighting,
             clip_bounds=clip_bounds,
         )
+        self.tx = build_optimizer(
+            optimizer=cfg.optimizer,
+            learning_rate=cfg.learning_rate,
+            min_learning_rate=cfg.min_learning_rate,
+            lr_decay=cfg.lr_decay,
+            max_train_steps=max_train_steps,
+            gradient_clip_val=gradient_clip_val,
+            accumulate_steps=cfg.accumulate_steps,
+        )
+        self.step = 0
+        self.opt_state: Optional[OptState] = None
+        self.ema: Optional[Dict[str, torch.Tensor]] = None
+
+    # ---- state ---------------------------------------------------------------
+
+    def init_state(self) -> None:
+        """A fresh train state for the current parameters: step 0, zero
+        optimizer moments, the EMA a copy of the parameters."""
+        self.step = 0
+        self.opt_state = self.tx.init(list(self.net.parameters()))
+        self.ema = None
+        if self.cfg.ema_decay > 0:
+            self.ema = {name: p.detach().float().clone() for name, p in self.net.named_parameters()}
+
+    def init_weights(self, generator: Optional[torch.Generator] = None) -> "DiffusionTask":
+        """Draw the parameters (flax's initializers) from ``generator`` and
+        make a fresh train state."""
+        self.net.init_weights(generator)
+        self.init_state()
+        return self
 
     def load_flax_params(self, params: Mapping) -> None:
         """Load a flax ``DenoisingModel`` parameter tree (nested dicts of
-        numpy arrays, with or without the ``"params"`` collection)."""
+        numpy arrays, with or without the ``"params"`` collection) and make a
+        fresh train state."""
         self.net.load_state_dict(torch_state_dict_from_flax(params))
+        self.init_state()
+
+    def n_params(self) -> int:
+        return sum(p.numel() for p in self.net.parameters())
+
+    def state_dict(self) -> Dict:
+        """The train state for a checkpoint: step, parameters, optimizer
+        state and EMA.  Like ``nn.Module.state_dict`` it holds the live
+        tensors, which the next step updates in place."""
+        if self.opt_state is None:
+            self.init_state()
+        return {"step": self.step, "net": self.net.state_dict(),
+                "opt": dict(vars(self.opt_state)), "ema": self.ema}
+
+    def load_state_dict(self, state: Mapping) -> None:
+        device = next(self.net.parameters()).device
+        move = lambda ts: None if ts is None else [t.to(device) for t in ts]  # noqa: E731
+        self.net.load_state_dict(state["net"])
+        opt = dict(state["opt"])
+        opt.update(mu=move(opt["mu"]), nu=move(opt["nu"]), acc=move(opt["acc"]))
+        self.opt_state = OptState(**opt)
+        self.step = int(state["step"])
+        ema = state["ema"]
+        self.ema = None if ema is None else {k: v.to(device) for k, v in ema.items()}
+
+    # ---- steps -----------------------------------------------------------------
+
+    def _model_input(self, cells: torch.Tensor, grid: GridMap) -> torch.Tensor:
+        return self.normalizer.normalize(embed_cells(cells, grid))
+
+    def _eps_fn(self, grid: GridMap, params: Optional[Mapping] = None):
+        """``net`` over the grid's cell types, with its own parameters or
+        ``params`` (a name -> tensor mapping) in their place."""
+
+        def eps_fn(x_t: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+            if params is None:
+                return self.net(x_t, t, grid.cell_types)
+            return functional_call(self.net, params, (x_t, t, grid.cell_types))
+
+        return eps_fn
+
+    def training_step(self, cells: torch.Tensor, grid: GridMap, noise) -> Dict[str, torch.Tensor]:
+        """One micro-step: the diffusion loss on ``cells`` (B, n_cells, F)
+        with t and the noise drawn from ``noise`` (``noise.randint`` and
+        ``noise(shape)``, as ``GaussianDiffusion.loss`` draws them), its
+        gradients (left in each parameter's ``.grad``), the optimizer (an
+        update on every ``cfg.accumulate_steps``-th micro-step) and the
+        warm-up EMA.  Returns ``{"train/loss": loss}`` as a device tensor:
+        no sync with the host.  The three parts run in the profiler ranges
+        ``train/loss``, ``train/backward`` and ``train/optimizer``."""
+        if self.opt_state is None:
+            self.init_state()
+        params = list(self.net.parameters())
+        for p in params:
+            p.grad = None
+        with record_function("train/loss"):
+            x = self._model_input(cells, grid)
+            loss = self.diffusion.loss(self._eps_fn(grid), x, grid, noise)
+        with record_function("train/backward"):
+            loss.backward()
+        with record_function("train/optimizer"):
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+            updated = self.tx.step_(params, grads, self.opt_state)
+            self.step += 1
+            if self.ema is not None and updated:
+                self._update_ema()
+        return {"train/loss": loss.detach()}
+
+    @torch.no_grad()
+    def _update_ema(self) -> None:
+        """Warm-up EMA: decay min(d, (1 + t) / (10 + t)) with t the number
+        of optimizer updates so far, blended in f32 (JAX's f32 arithmetic)."""
+        t = np.float32(self.step // self.tx.accumulate_steps)
+        decay = min(np.float32(self.cfg.ema_decay), (1 + t) / (10 + t))
+        ema = list(self.ema.values())
+        params = [p.detach().float() for p in self.net.parameters()]
+        torch._foreach_mul_(ema, float(decay))
+        torch._foreach_add_(ema, params, alpha=float(np.float32(1) - decay))
+
+    @torch.no_grad()
+    def eval_diagnostics(self, cells: torch.Tensor, grid: GridMap, noise) -> Dict[str, float]:
+        """The masked epsilon-loss at 8 timesteps spread over [0, T), with
+        the parameters (``val/eps-loss-t<t>``) and, with an EMA, the EMA
+        parameters (``val/eps-loss-ema-t<t>``).  One noise draw per timestep,
+        the same for both."""
+        T = self.cfg.timesteps
+        ts = np.unique(np.round(np.linspace(0, T - 1, 8)).astype(np.int64)).tolist()
+        x = self._model_input(cells, grid)
+        draws = [noise(x.shape) for _ in ts]
+        runs = [("val/eps-loss-t", None)]
+        if self.ema is not None:
+            runs.append(("val/eps-loss-ema-t", self.ema))
+        out: Dict[str, float] = {}
+        for prefix, params in runs:
+            eps_fn = self._eps_fn(grid, params)
+            for t, draw in zip(ts, draws):
+                t_vec = torch.full((x.shape[0],), t, dtype=torch.long, device=x.device)
+                loss = self.diffusion.p_losses(eps_fn, x, t_vec, grid, lambda shape, d=draw: d)
+                out[f"{prefix}{t}"] = float(loss)
+        return out
 
     def sample(
         self,
@@ -173,12 +329,15 @@ class DiffusionTask:
         *,
         start_from: Optional[int] = None,
     ) -> torch.Tensor:
-        """Denormalized samples (B, n_cells, F) with ``eval_net`` and the
-        sampler of ``cfg.sampler`` (DDIM with ``cfg.ddim_steps`` and
-        ``cfg.ddim_eta``, or ancestral over all steps or the last
-        ``start_from``)."""
+        """Denormalized samples (B, n_cells, F) with ``eval_net`` (on the
+        EMA parameters when there are any) and the sampler of
+        ``cfg.sampler`` (DDIM with ``cfg.ddim_steps`` and ``cfg.ddim_eta``,
+        or ancestral over all steps or the last ``start_from``)."""
+        model = self.eval_net
+        if self.ema is not None:
+            model = lambda *args: functional_call(self.eval_net, self.ema, args)  # noqa: E731
         return sample(
-            self.eval_net, self.diffusion, self.normalizer, cells, grid,
+            model, self.diffusion, self.normalizer, cells, grid,
             sampler=self.cfg.sampler, ddim_steps=self.cfg.ddim_steps,
             ddim_eta=self.cfg.ddim_eta, noise=noise, start_from=start_from,
         )

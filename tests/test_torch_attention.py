@@ -90,3 +90,55 @@ def test_flash_attention_takes_strided_views():
     got = ck.flash_attention(q, k, v)
     want = _xla_attention(*(np.ascontiguousarray(t.numpy()) for t in (q, k, v)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("strided", [False, True], ids=["contiguous", "strided"])
+def test_flash_attention_gradients_match_jax(strided):
+    """flash_attention is differentiable: on the CPU its gradients are
+    autograd of the plain version, bit-equal to differentiating
+    ``_flash_attention_plain`` itself, and at the f32 tolerance of
+    ``jax.vjp`` of the JAX package's ``_xla_attention`` (its path off the
+    TPU).  ``strided`` differentiates through the U-Net's qkv views."""
+    import jax
+
+    rng = np.random.default_rng(11)
+    B, H, N, D = 2, 2, 130, 16
+    qkv = rng.normal(size=(B, N, 3, H, D)).astype(np.float32)
+    cot = rng.normal(size=(B, H, N, D)).astype(np.float32)
+
+    def grads(fn):
+        if strided:
+            leaf = torch.tensor(qkv, requires_grad=True)
+            q, k, v = (leaf[:, :, i].transpose(1, 2) for i in range(3))
+            leaves = [leaf]
+        else:
+            leaves = [torch.tensor(np.ascontiguousarray(qkv[:, :, i].transpose(0, 2, 1, 3)), requires_grad=True)
+                      for i in range(3)]
+            q, k, v = leaves
+        out = fn(q, k, v)
+        assert out.grad_fn is not None
+        out.backward(torch.from_numpy(cot))
+        return [t.grad for t in leaves]
+
+    got = grads(ck.flash_attention)
+    assert all(torch.equal(g, w) for g, w in zip(got, grads(ck._flash_attention_plain)))
+    jq, jk, jv = (np.ascontiguousarray(qkv[:, :, i].transpose(0, 2, 1, 3)) for i in range(3))
+    _, vjp = jax.vjp(_xla_attention, jq, jk, jv)
+    want = [np.asarray(g) for g in vjp(cot)]
+    if strided:
+        want = [np.stack([w.transpose(0, 2, 1, 3) for w in want], axis=2)]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, **F32_TOL)
+
+
+def test_multihead_attention_at_flash_size_keeps_the_graph():
+    """From FLASH_MIN_TOKENS tokens up, multihead_attention's output has a
+    grad_fn when its inputs require grad, and none under no_grad."""
+    n = tattention.FLASH_MIN_TOKENS
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv((1, 1, n, 8), seed=4))
+    out = tattention.multihead_attention(q, k, v)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert all(t.grad is not None and bool(t.grad.abs().sum() > 0) for t in (q, k, v))
+    with torch.no_grad():
+        assert tattention.multihead_attention(q, k, v).grad_fn is None

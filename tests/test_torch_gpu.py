@@ -153,6 +153,49 @@ def test_flash_attention_edges_on_gpu(N, D, dtype, strided):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("strided", [False, True], ids=["contiguous", "strided"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,N,D", [(2, 2, 2100, 16), (2, 4, 4096, 32)])
+def test_flash_attention_gradients_on_gpu(B, H, N, D, dtype, strided):
+    """flash_attention on the card is differentiable: its forward launches
+    the kernel once (the output has a grad_fn), its backward launches none,
+    and the gradients of q, k and v (or of the strided views' qkv) equal
+    those of the plain version (f32 at the f32 tolerance, bf16 at the bf16
+    one held to the gradient's scale)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA Hopper GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(N + D)
+    cot = torch.randn(B, H, N, D, generator=gen).to("cuda", dtype)
+    base = torch.randn(B, N, 3, H, D, generator=gen).to("cuda", dtype)
+
+    def grads(fn):
+        if strided:
+            leaves = [base.clone().requires_grad_()]
+            q, k, v = (leaves[0][:, :, i].transpose(1, 2) for i in range(3))
+        else:
+            leaves = [base[:, :, i].transpose(1, 2).contiguous().requires_grad_() for i in range(3)]
+            q, k, v = leaves
+        out = fn(q, k, v)
+        assert out.grad_fn is not None
+        launched = ck.LAUNCH_COUNTS["flash_attention"]
+        out.backward(cot)
+        assert ck.LAUNCH_COUNTS["flash_attention"] == launched
+        return [t.grad for t in leaves]
+
+    before = ck.LAUNCH_COUNTS["flash_attention"]
+    got = grads(ck.flash_attention)
+    assert ck.LAUNCH_COUNTS["flash_attention"] == before + 1
+    want = grads(ck._flash_attention_plain)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        if dtype == torch.float32:
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **F32_TOL)
+        else:
+            _assert_bf16_close(g.float().cpu().numpy(), w.float().cpu().numpy(), scaled=True)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_takes_more_than_65535_heads_on_gpu(dtype):
     """The kernels walk a 1-D list of work items, so B * H is not bound by
