@@ -66,14 +66,30 @@ Run from the repository root:  python3 chip_smoke.py
    gradients x 1.1 refused.  Then the same at 2 levels (4 timed steps),
    where flash_attention launches, its gradients held against the plain
    attention's.
+6b. Eval path: a synthetic dataset on disk in the ``.npyd`` format (1 train
+   and 1 val case of the shapes grid, 16 frames, seed 0; ``compute_stats``),
+   the val case's regions rewritten as 512-cell runs; ``DataModule`` ->
+   the val batch of 8 frames ``to("cuda")`` -> ``DiffusionTask.eval_step``
+   (4 levels bf16 DDIM-50, then 2 levels DDIM-10) -> the sample store ->
+   ``on_eval_end`` (after a cold first ``eval_step`` of one DDIM step and
+   ``on_eval_start``; ``val/tke`` and its regions, ``val/max-mean-tke-pos``,
+   ``val/wasserstein`` by Sinkhorn on the card over 32 regions).  Checks:
+   the chain counters rose by (U-Net evaluations x engaged blocks) in
+   ``eval_step`` and flash_attention once per evaluation at 2 levels; the
+   store holds the 8 samples; the values are finite and >= 0; the log-TKE
+   distance matrix on the card within rtol 1e-3 of the CPU's; and once:
+   real frames closer to the data than noise in ``val/tke``, and the
+   Sinkhorn Wasserstein within 15% of the exact host EMD over 4 regions.
+   Prints one ``eval_path`` JSON line (seconds of each part, values, peak
+   memory, launches).
 7. Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
    Every kernel's entry has its time, its bound (``bound_ms``: the larger of
    its bytes over the memory rate and its operations over the peak rate of
    their kind, from this run's shapes; ``bound_by``, ``bound_kind``), the
    plain version's time, the library call's (``library_ms``, or null where
    no one torch call computes the same function) and its launches on each
-   main path (``launches_by_path``: per sampler run, and per train step on
-   the train paths).
+   main path (``launches_by_path``: per sampler run, per train step on
+   the train paths, and per ``eval_step`` on the eval paths).
 
 Any failure exits non-zero before the last line.
 """
@@ -88,6 +104,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -1098,6 +1115,240 @@ def profile_train_step(torch, label: str, fn) -> dict:
     return row
 
 
+# The eval path: the shapes grid as a dataset on disk (1 train and 1 val
+# case, 16 frames, seed 0) in the .npyd format, which reads without h5py.
+EVAL_FRAMES = 16
+EVAL_BATCH = 8
+# The val case's homogeneous regions for the point-cloud Wasserstein: the
+# shapes data's regions hold at most 512 cells (the JAX package's
+# eval/metrics.py:246-248); the Sinkhorn solve runs over 32 of them, and the
+# calibration against the exact host EMD over 4.
+EVAL_REGION_CELLS = 512
+EVAL_MAX_REGIONS, CALIBRATION_REGIONS = 32, 4
+SINKHORN_REL_TOL = 0.15  # the JAX package's calibration bound (tests/test_eval.py:150-158)
+SPECTRA_RTOL = 1e-3  # cuFFT against pocketfft, f32
+EVAL_RUNS = [
+    # (label, overrides, U-Net evaluations per eval_step, flash_attention launches per evaluation)
+    ("4_levels", ["model.compute_dtype=bfloat16", "model.sampler=ddim", "model.ddim_steps=50"], 50, 0),
+    ("2_levels", ["model.u_net_levels=2", "model.compute_dtype=bfloat16", "model.sampler=ddim",
+                  "model.ddim_steps=10"], 10, 1),
+]
+
+
+class TimedMetric:
+    """A metric of a SampleMetricsCollection, with the seconds its calls took."""
+
+    def __init__(self, torch, metric):
+        self.torch, self.metric, self.seconds = torch, metric, 0.0
+
+    def is_expensive(self) -> bool:
+        return self.metric.is_expensive()
+
+    def __call__(self, *args):
+        tic = time.perf_counter()
+        out = self.metric(*args)
+        self.torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - tic
+        return out
+
+
+def timed_call(torch, fn, seconds: dict, key: str):
+    """``fn``, adding the seconds each call takes (the card synchronised) to
+    ``seconds[key]``."""
+
+    def run(*args, **kwargs):
+        tic = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - tic
+        return out
+
+    return run
+
+
+def write_eval_dataset(root: Path) -> float:
+    """The eval path's dataset under ``root``; returns the seconds it took
+    (the cases, their side files and ``compute_stats``)."""
+    import numpy as np
+
+    from generative_turbulence_tpu_torch.data.schema import read_metadata
+    from generative_turbulence_tpu_torch.data.synthetic import generate_synthetic_dataset
+
+    tic = time.perf_counter()
+    generate_synthetic_dataset(root, n_train_cases=1, n_val_cases=1, n_test_cases=0, n_frames=EVAL_FRAMES,
+                               cell_counts=(192, 48, 48), seed=0, format="npyd")
+    seconds = time.perf_counter() - tic
+    # Test-data preparation: the generator cuts a case into 4 regions, about
+    # 110k cells each at this grid, where the Sinkhorn's (n, chunk, m, R, R)
+    # cost tensor would need 8 * 8 * (1.1e5)^2 floats.  Contiguous regions of
+    # 512 cells, as large as the real data's, take their place.
+    case = root / "val" / "case-val-00"
+    n_cells = read_metadata(case / "data.npyd").n_cells
+    np.savez(case / "regions.npz", assignments=np.arange(n_cells) // EVAL_REGION_CELLS)
+    log(f"[6b] eval dataset: 1 train + 1 val case of 192x48x48 cells, {EVAL_FRAMES} frames, .npyd, "
+        f"stats computed, in {seconds!r} s; val regions of {EVAL_REGION_CELLS} cells")
+    return seconds
+
+
+def spectra_check(samples, data) -> float:
+    """The log-TKE distance matrix of ``samples`` against ``data`` over the
+    back region, on the card against the same function on the CPU; returns
+    the largest relative error."""
+    import numpy as np
+
+    from generative_turbulence_tpu_torch.eval.metrics import _embed_u
+    from generative_turbulence_tpu_torch.ops.spectra import SpectrumOps, log_tke_distance_matrix
+
+    distances = {}
+    for device in ("cuda", "cpu"):
+        u_s, u_d = (_embed_u(x, device)[:, 1:-1, 1:-1, 1:-1] for x in (samples, data))
+        L, W = u_s.shape[1], min(u_s.shape[2], u_s.shape[3])
+        back = slice(L - W, L)
+        D = log_tke_distance_matrix(u_s[:, back], u_d[:, back], u_d.mean(dim=0)[back],
+                                    SpectrumOps.create(device=device))[0]
+        distances[device] = D.double().cpu().numpy()
+    got, want = distances["cuda"], distances["cpu"]
+    err = float(np.max(np.abs(got - want) / np.abs(want)))
+    log(f"    log-TKE distance matrix {got.shape}, card vs CPU: max relative error {err!r} (rtol {SPECTRA_RTOL})")
+    check(bool(np.isfinite(got).all()) and err <= SPECTRA_RTOL, f"log-TKE distances: card vs CPU {err}")
+    return err
+
+
+def metric_checks(torch, root: Path, stats, data) -> dict:
+    """The metrics' own checks on the card, against ``data`` (the val frames
+    the samples are scored against), with real frames from the first half of
+    the case in place of samples: real frames closer to the data than noise
+    in ``val/tke``, and the Sinkhorn Wasserstein within 15% of the exact
+    host EMD on the same 4 regions.  They do not depend on the network, so
+    they run once."""
+    import numpy as np
+
+    from generative_turbulence_tpu_torch.data.schema import CaseRepository, find_data_files
+    from generative_turbulence_tpu_torch.eval.metrics import WassersteinMetric, WassersteinTKE
+
+    out = {}
+    repo = CaseRepository(find_data_files(root / "val"), tuple(data.fields))
+    n = data.n_samples
+    real = repo.read(0, np.round(np.linspace(0, EVAL_FRAMES // 2 - 1, n)).astype(int))
+    tke = WassersteinTKE(device="cuda")
+    real_tke = tke(real, data, stats)["tke"]
+    rng = np.random.default_rng(0)
+    noise = repo.read(0, np.round(np.linspace(0, EVAL_FRAMES // 2 - 1, n)).astype(int))
+    for v in noise.fields:
+        noise.fields[v] = rng.normal(size=noise.fields[v].shape).astype(np.float32) * np.abs(noise.fields[v]).mean()
+    noise_tke = tke(noise, data, stats)["tke"]
+    log(f"    val/tke of real frames {real_tke!r} < of noise {noise_tke!r}")
+    check(0 <= real_tke < noise_tke, f"real frames' tke {real_tke} not below noise's {noise_tke}")
+    out.update(real_frames_tke=real_tke, noise_tke=noise_tke)
+
+    w = {}
+    for solver in ("sinkhorn", "exact"):
+        metric = WassersteinMetric(max_workers=1, solver=solver, max_regions=CALIBRATION_REGIONS, region_seed=0)
+        tic = time.perf_counter()
+        w[solver] = metric(real, data, stats)["wasserstein"]
+        torch.cuda.synchronize()
+        out[f"calibration_{solver}_s"] = time.perf_counter() - tic
+    rel = abs(w["sinkhorn"] - w["exact"]) / w["exact"]
+    log(f"    Wasserstein over {CALIBRATION_REGIONS} regions, real frames vs data: Sinkhorn on the card "
+        f"{w['sinkhorn']!r} ({out['calibration_sinkhorn_s']!r} s), exact host EMD {w['exact']!r} "
+        f"({out['calibration_exact_s']!r} s): relative difference {rel!r} (bound {SINKHORN_REL_TOL})")
+    check(rel <= SINKHORN_REL_TOL, f"Sinkhorn Wasserstein off the exact one by {rel}")
+    out.update(calibration_sinkhorn=w["sinkhorn"], calibration_exact=w["exact"], calibration_rel_diff=rel)
+    return out
+
+
+def eval_phase(torch, ck, root: Path, label: str, overrides: list, n_evals: int, flash_per_eval: int) -> tuple:
+    """One pass of the validation path: DataModule -> val batch on the card
+    -> DiffusionTask.eval_step -> the sample store -> on_eval_end (val/tke,
+    the regions, max-mean-tke-pos, the Sinkhorn Wasserstein over 32 regions),
+    with the launch counts of eval_step, ``spectra_check`` on the stored
+    samples and, in the first run, ``metric_checks``."""
+    import numpy as np
+
+    from generative_turbulence_tpu_torch.data.dataset import DataModule
+    from generative_turbulence_tpu_torch.diffusion.gaussian import GeneratorNoise
+    from generative_turbulence_tpu_torch.eval.metrics import WassersteinMetric
+    from generative_turbulence_tpu_torch.training.config import parse_cli_overrides
+    from generative_turbulence_tpu_torch.training.diffusion_task import DiffusionTask
+
+    log(f"[6b] eval path, {label}: {' '.join(overrides)}; val batch {EVAL_BATCH}")
+    dm = DataModule(root, eval_batch_size=EVAL_BATCH, val_samples=EVAL_BATCH).setup("validate")
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    batch = next(iter(dm.val_batches())).to("cuda")
+    torch.cuda.synchronize()
+    read_ms = (time.perf_counter() - tic) * 1e3
+    cfg = parse_cli_overrides(overrides).resolved()
+    task = DiffusionTask(cfg.model, dm.stats, "cuda", data_root=root, samples_root=root / "samples" / label,
+                         wasserstein_solver="sinkhorn")
+    task.net.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    collection = task.metrics["val"]
+    for metric in collection.metrics:
+        if isinstance(metric, WassersteinMetric):
+            metric.max_regions, metric.region_seed = EVAL_MAX_REGIONS, 0
+    collection.metrics = [TimedMetric(torch, m) for m in collection.metrics]
+    log(f"  batch {tuple(batch.cells.shape)} of {batch.metadata.case_name} read and on the card in {read_ms!r} ms")
+
+    # A first eval_step of one DDIM step meets the cold start (cuDNN plans,
+    # the allocator) that a validation pays once; on_eval_start then drops
+    # its samples.  The task reads cfg.ddim_steps at call time.
+    torch.cuda.reset_peak_memory_stats()
+    steps, task.cfg.ddim_steps = task.cfg.ddim_steps, 1
+    tic = time.perf_counter()
+    task.eval_step(batch, GeneratorNoise(torch.Generator(device="cuda").manual_seed(1), "cuda"), "val")
+    cold_s = time.perf_counter() - tic
+    task.cfg.ddim_steps = steps
+    task.on_eval_start("val")
+    noise = GeneratorNoise(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    store = task.sample_stores["val"]
+    parts = {}  # eval_step split: the sampler, the store's write, the rest (copy to the host, statistics)
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    tic = time.perf_counter()
+    with patched(task, "sample", timed_call(torch, task.sample, parts, "sampler_s")), \
+            patched(store, "add_samples", timed_call(torch, store.add_samples, parts, "store_write_s")):
+        step = task.eval_step(batch, noise, "val")  # ends by copying the samples to the host
+    step_s = time.perf_counter() - tic
+    launches = dict(ck.LAUNCH_COUNTS)
+    parts["host_copy_and_statistics_s"] = step_s - parts["sampler_s"] - parts["store_write_s"]
+    log(f"  first eval_step (1 DDIM step, cold) {cold_s!r} s; eval_step {step_s!r} s: sampler "
+        f"{parts['sampler_s']!r} s ({n_evals} U-Net evaluations, {parts['sampler_s'] / n_evals * 1e3!r} ms each), "
+        f"store write {parts['store_write_s']!r} s, the rest {parts['host_copy_and_statistics_s']!r} s; {step}; "
+        f"launches {launches}")
+    expected = dict({name: n_evals * len(ENGAGED_BLOCKS) for name in CHAIN_KERNELS},
+                    flash_attention=n_evals * flash_per_eval, conv3d_3x3=0)
+    for name, n in expected.items():
+        check(launches[name] == n, f"eval {label}: {name} launched {launches[name]} times, expected {n}")
+    case = batch.metadata.case_name
+    check(store.case_names == [case] and store.n_samples(case) == EVAL_BATCH,
+          f"eval {label}: the store holds {store.case_names} / {store.n_samples(case)} samples")
+
+    tic = time.perf_counter()
+    values = task.on_eval_end(dm.stats, "val", expensive=True)
+    end_s = time.perf_counter() - tic
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    seconds = {type(m.metric).__name__: m.seconds for m in collection.metrics}
+    log(f"  on_eval_end {end_s!r} s ({seconds}); peak memory {peak!r} GiB")
+    log(f"  {json.dumps(values)}")
+    for name in ("val/tke", "val/tke-front", "val/tke-middle", "val/tke-back", "val/max-mean-tke-pos",
+                 "val/wasserstein"):
+        check(name in values and math.isfinite(values[name]) and values[name] >= 0, f"eval {label}: {name} = "
+              f"{values.get(name)}")
+
+    samples = store.load_samples(batch.metadata)
+    n_data = len(dm.val_dataset.repo.times[0])
+    data = dm.val_dataset.repo.read(0, np.round(np.linspace(n_data // 2, n_data - 1, EVAL_BATCH)).astype(int))
+    checks = {"spectra_card_vs_cpu_max_rel_err": spectra_check(samples, data)}
+    if label == EVAL_RUNS[0][0]:
+        checks.update(metric_checks(torch, root, dm.stats, data))
+    row = {"read_batch_ms": read_ms, "cold_eval_step_1_ddim_step_s": cold_s, "eval_step_s": step_s, **parts,
+           "sampler_ms_per_evaluation": parts["sampler_s"] / n_evals * 1e3,
+           "on_eval_end_s": end_s, "spectra_s": seconds["WassersteinTKE"], "sinkhorn_s": seconds["WassersteinMetric"],
+           "max_mean_tke_s": seconds["MaxMeanTKEPositionMetric"], "peak_gib": peak, "launches": launches,
+           "values": {**step, **values}, "checks": checks}
+    return launches, row
+
+
 
 def main() -> int:
     if not (ROOT / "generative_turbulence_tpu_torch").is_dir():
@@ -1135,24 +1386,32 @@ def main() -> int:
         launches2, timings2 = two_level_phase(torch, ck, profiles)
         train_launches4, train4, train_profile4 = train_phase(torch, ck, 4, TRAIN_TIMED)
         train_launches2, train2, train_profile2 = train_phase(torch, ck, 2, 4)
+        with tempfile.TemporaryDirectory() as tmp:
+            eval_rows = {"dataset_write_s": write_eval_dataset(Path(tmp))}
+            eval_launches = {}
+            for label, overrides, n_evals, flash_per_eval in EVAL_RUNS:
+                eval_launches[label], eval_rows[label] = eval_phase(
+                    torch, ck, Path(tmp), label, overrides, n_evals, flash_per_eval)
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1
     timings.update(timings2)
     profiles += [train_profile4, train_profile2]
-    # Launches on the main paths (the 4-level and the 2-level sampler runs
-    # and train steps), each counted from 0 just before the path runs; the
-    # train paths per step.
+    # Launches on the main paths (the 4-level and the 2-level sampler runs,
+    # train steps and eval steps), each counted from 0 just before the path
+    # runs; the train paths per step, the eval paths per eval_step.
     for entry in kernels:
         name = entry["name"]
-        entry["launches"] = (launches4[name] + launches2[name]
-                             + train_launches4[name] + train_launches2[name])
+        entry["launches"] = (launches4[name] + launches2[name] + train_launches4[name] + train_launches2[name]
+                             + sum(counts[name] for counts in eval_launches.values()))
         entry["launches_by_path"] = {
             "4_levels": launches4[name], "2_levels": launches2[name],
             "train_4_levels": train4["launches_per_step"][name],
             "train_2_levels": train2["launches_per_step"][name],
+            **{f"eval_{label}": counts[name] for label, counts in eval_launches.items()},
         }
     log(f"[7] card: {smi}")
+    print(json.dumps({"eval_path": eval_rows, "card": smi}))
     print(json.dumps({"blocks": block_rows, "main_path": timings, "profiles": profiles,
                       "train": [train4, train2]}))
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,23 @@
-"""The on-disk case schema (``data.h5`` + ``stats.pickle``) and its host types.
+"""The on-disk case schema (``data.h5`` + ``stats.pickle``), its readers and writers.
 
-numpy copy of the parts of ``generative_turbulence_tpu/data/schema.py`` that
-sampling needs: cell types, boundary conditions, ``CaseMetadata`` (with the
-inside mask, cell-type grid and Dirichlet table) and ``FieldStats``.  The
-HDF5 layout is the same; ``h5py`` is imported only inside the functions that
-read or write files, so the in-memory path runs without it.
+numpy copy of ``generative_turbulence_tpu/data/schema.py``: cell types,
+boundary conditions, ``CaseMetadata`` (with the inside mask, cell-type grid
+and Dirichlet table), ``FieldStats``, ``read_metadata``, ``CaseRepository``
+and ``find_data_files``.  A case file is an HDF5 file or a ``.npyd``
+directory of the same datasets and attributes (``data/npyd.py``): every
+reader opens it with ``open_case_file``, which imports ``h5py`` only for an
+HDF5 file, so a ``.npyd`` dataset reads without ``h5py``.  The layout:
+
+- ``physical@nu``                              kinematic viscosity
+- ``domain@boundaries``                        boundary name -> type (JSON)
+- ``boundary-conditions/<var>/<boundary>``     @type + optional ``value`` dataset
+- ``data/times``                               (T,) float
+- ``data/{u,p,k,nut}``                         (T, n_cells[, dims]) float32
+- ``geometry/{bounding_box,cell_counts}``      physical size / unpadded resolution
+- ``geometry/holes/{positions,sizes}``         obstacles
+- ``grid/cell_counts``                         PADDED grid shape (unpadded + 2)
+- ``grid/cell_idx``                            flat indices of in-domain cells
+- ``grid/boundaries/<name>``                   padding-cell index arrays, @type
 """
 
 from __future__ import annotations
@@ -19,6 +32,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..utils.index import ravel_multi_index, unravel_index
+from .npyd import SUFFIX, open_case_file, write_case_file
 from .variables import Variable, total_dims
 
 
@@ -35,7 +49,7 @@ class BoundaryCondition:
 
     @staticmethod
     def from_h5(group) -> "BoundaryCondition":
-        """Read from an ``h5py.Group`` holding ``@type`` and ``value``."""
+        """Read from a group (HDF5 or ``.npyd``) holding ``@type`` and ``value``."""
         kind = group.attrs["type"]
         if isinstance(kind, bytes):
             kind = kind.decode()
@@ -44,11 +58,6 @@ class BoundaryCondition:
         if bc_type is BCType.FIXED_VALUE:
             value = np.atleast_1d(np.asarray(group["value"], dtype=np.float32))
         return BoundaryCondition(bc_type, value)
-
-    def to_h5(self, group) -> None:
-        group.attrs["type"] = self.type.value
-        if self.type is BCType.FIXED_VALUE:
-            group.create_dataset("value", data=np.asarray(self.value, dtype=np.float32))
 
 
 # Cell types on the padded grid.  Order matters: it defines embedding indices.
@@ -64,8 +73,8 @@ class CaseMetadata:
     ``cell_counts`` is the PADDED dense grid shape; ``cell_idx`` holds the flat
     indices (row-major over the padded grid) of the real simulation cells.
     Boundary-condition padding cells carry Dirichlet values where applicable.
-    ``file`` names the case's ``data.h5``, or is None for a case built in
-    memory.
+    ``file`` names the case's ``data.h5`` or ``data.npyd``, or is None for a
+    case built in memory.
     """
 
     file: Optional[Path]
@@ -78,6 +87,10 @@ class CaseMetadata:
     holes: List[Tuple[np.ndarray, np.ndarray]]  # (position, size) pairs
 
     _cache: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def case_name(self) -> str:
+        return self.file.parent.name
 
     @property
     def n_cells(self) -> int:
@@ -248,12 +261,31 @@ class FieldStats:
         Path(file).write_bytes(pickle.dumps(raw))
 
 
-def read_metadata(file: Path) -> CaseMetadata:
-    """Read the static geometry of a case from its ``data.h5``."""
-    import h5py
 
+def case_file(case_dir: Path, stem: str = "data") -> Optional[Path]:
+    """A case's ``<stem>.npyd`` directory, else its ``<stem>.h5``, else None.
+
+    One fixed rule: where a case directory holds both formats, the ``.npyd``
+    is taken (it reads without ``h5py``, and a conversion writes it beside the
+    ``.h5`` it came from)."""
+    case_dir = Path(case_dir)
+    npyd, h5 = case_dir / f"{stem}{SUFFIX}", case_dir / f"{stem}.h5"
+    if npyd.is_dir():
+        return npyd
+    return h5 if h5.is_file() else None
+
+
+def find_data_files(cases_root: Path) -> List[Path]:
+    """Each case directory's data file under ``cases_root``, in name order
+    (``case_file``: ``data.npyd`` where there is one, else ``data.h5``)."""
+    found = (case_file(child) for child in sorted(Path(cases_root).iterdir()) if child.is_dir())
+    return [file for file in found if file is not None]
+
+
+def read_metadata(file: Path) -> CaseMetadata:
+    """Read the static geometry of a case from its ``data.h5`` or ``data.npyd``."""
     file = Path(file)
-    with h5py.File(file, "r") as f:
+    with open_case_file(file) as f:
         bounding_box = np.asarray(f["geometry/bounding_box"], dtype=np.float64)
         bb_cell_counts = np.asarray(f["geometry/cell_counts"], dtype=np.int64)
         nu = float(f["physical"].attrs["nu"])
@@ -288,8 +320,66 @@ def read_metadata(file: Path) -> CaseMetadata:
     )
 
 
-def write_case_h5(
-    file: Path,
+class CaseRepository:
+    """Reader over a list of case data files (``data.h5`` or ``data.npyd``).
+
+    Per-file metadata and time arrays are cached.  Frame reads take the
+    sorted unique frames (HDF5's fancy indexing needs them increasing; a
+    ``.npyd`` memory map reads only those rows) and put them back in the
+    asked order with the inverse index.
+    """
+
+    def __init__(self, files: Sequence[Path], variables: Sequence[Variable]):
+        self.files = [Path(f) for f in files]
+        self.variables = tuple(variables)
+        self.reset_caches()
+
+    def reset_caches(self) -> None:
+        self._metadata: Dict[int, CaseMetadata] = {}
+        self._times: Optional[List[np.ndarray]] = None
+
+    @property
+    def n_cases(self) -> int:
+        return len(self.files)
+
+    @property
+    def times(self) -> List[np.ndarray]:
+        if self._times is None:
+            self._times = []
+            for file in self.files:
+                with open_case_file(file) as f:
+                    self._times.append(np.array(f["data/times"]))
+        return self._times
+
+    def read_metadata(self, file_idx: int) -> CaseMetadata:
+        if file_idx not in self._metadata:
+            self._metadata[file_idx] = read_metadata(self.files[file_idx])
+        return self._metadata[file_idx]
+
+    def read_frames(self, file_idx: int, sample_idxs: Sequence[int]) -> Dict[Variable, np.ndarray]:
+        """Read frames as {Variable: (B, n_cells, dims) float32}."""
+        unique_sorted, inverse = np.unique(np.asarray(sample_idxs), return_inverse=True)
+        out = {}
+        with open_case_file(self.files[file_idx]) as f:
+            group = f["data"]
+            for v in self.variables:
+                arr = np.asarray(group[v.key][unique_sorted.tolist()], dtype=np.float32)
+                if arr.ndim == 2:
+                    arr = arr[..., None]
+                out[v] = arr[inverse]
+        return out
+
+    def read(self, file_idx: int, sample_idxs: Sequence[int]):
+        from .dataset import CaseData  # local import to avoid a cycle
+
+        return CaseData(
+            metadata=self.read_metadata(file_idx),
+            t=self.times[file_idx][np.asarray(sample_idxs)],
+            fields=self.read_frames(file_idx, sample_idxs),
+        )
+
+
+def case_layout(
     *,
     nu: float,
     bounding_box: np.ndarray,
@@ -301,58 +391,62 @@ def write_case_h5(
     times: np.ndarray,
     fields: Dict[Variable, np.ndarray],
     domain: Optional[Dict[str, np.ndarray]] = None,
-) -> None:
-    """Write a complete ``data.h5`` following the schema above."""
-    import h5py
+) -> Tuple[Dict[str, np.ndarray], Dict[str, Dict]]:
+    """A case's datasets ({path: array}) and attributes ({path: {name:
+    value}}) following the schema above, for ``write_case_file``."""
+    arrays: Dict[str, np.ndarray] = {}
+    attrs: Dict[str, Dict] = {"physical": {"nu": nu}}
+    for name, arr in (domain or {}).items():
+        arrays[f"domain/{name}"] = arr
+    attrs["domain"] = {
+        "boundaries": json.dumps({name: desc["type"] for name, desc in boundaries.items()})
+    }
+    for v, bcs in boundary_conditions.items():
+        attrs[f"boundary-conditions/{v.key}"] = {}
+        for bname, bc in bcs.items():
+            path = f"boundary-conditions/{v.key}/{bname}"
+            attrs[path] = {"type": bc.type.value}
+            if bc.type is BCType.FIXED_VALUE:
+                arrays[f"{path}/value"] = np.asarray(bc.value, dtype=np.float32)
 
-    file = Path(file)
+    arrays["data/times"] = np.asarray(times, dtype=np.float64)
+    for v, arr in fields.items():
+        arr = np.asarray(arr, dtype=np.float32)
+        if arr.ndim == 3 and arr.shape[-1] == 1:
+            arr = arr[..., 0]
+        arrays[f"data/{v.key}"] = arr
+
+    arrays["geometry/bounding_box"] = np.asarray(bounding_box, dtype=np.float64)
+    arrays["geometry/cell_counts"] = np.asarray(unpadded_cell_counts, dtype=np.int64)
+    arrays["geometry/holes/positions"] = (
+        np.stack([np.asarray(p) for p, _ in holes]) if holes else np.zeros((0, 3))
+    )
+    arrays["geometry/holes/sizes"] = (
+        np.stack([np.asarray(s) for _, s in holes]) if holes else np.zeros((0, 3))
+    )
+
+    arrays["grid/cell_counts"] = (np.asarray(unpadded_cell_counts) + 2).astype(np.int64)
+    arrays["grid/cell_idx"] = np.asarray(cell_idx, dtype=np.int64)
+    for name, desc in boundaries.items():
+        path = f"grid/boundaries/{name}"
+        arrays[path] = np.asarray(desc["idx"], dtype=np.int64)
+        attrs[path] = {"type": desc["type"], "start": desc.get("start", 0), "n": len(desc["idx"])}
+    return arrays, attrs
+
+
+def write_case_h5(file: Path, **case) -> Path:
+    """Write a complete ``data.h5`` (``case_layout``'s arguments)."""
+    return _write_case(Path(file), ".h5", case)
+
+
+def write_case_npyd(file: Path, **case) -> Path:
+    """Write a complete ``data.npyd`` (``case_layout``'s arguments): the same
+    datasets and attributes as ``write_case_h5``."""
+    return _write_case(Path(file), SUFFIX, case)
+
+
+def _write_case(file: Path, suffix: str, case: dict) -> Path:
+    if file.suffix != suffix:
+        raise ValueError(f"{file} does not end in {suffix}")
     file.parent.mkdir(parents=True, exist_ok=True)
-    padded = np.asarray(unpadded_cell_counts) + 2
-    with h5py.File(file, "w") as f:
-        f.create_group("physical").attrs["nu"] = nu
-
-        dom = f.create_group("domain")
-        for name, arr in (domain or {}).items():
-            dom.create_dataset(name, data=arr)
-        dom.attrs["boundaries"] = json.dumps(
-            {name: desc["type"] for name, desc in boundaries.items()}
-        )
-
-        bc_group = f.create_group("boundary-conditions")
-        for v, bcs in boundary_conditions.items():
-            var_group = bc_group.create_group(v.key)
-            for bname, bc in bcs.items():
-                bc.to_h5(var_group.create_group(bname))
-
-        data = f.create_group("data")
-        data.create_dataset("times", data=np.asarray(times, dtype=np.float64))
-        for v, arr in fields.items():
-            arr = np.asarray(arr, dtype=np.float32)
-            if arr.ndim == 3 and arr.shape[-1] == 1:
-                arr = arr[..., 0]
-            data.create_dataset(v.key, data=arr)
-
-        geom = f.create_group("geometry")
-        geom.create_dataset("bounding_box", data=np.asarray(bounding_box, dtype=np.float64))
-        geom.create_dataset(
-            "cell_counts", data=np.asarray(unpadded_cell_counts, dtype=np.int64)
-        )
-        holes_group = geom.create_group("holes")
-        positions = [np.asarray(p) for p, _ in holes]
-        sizes = [np.asarray(s) for _, s in holes]
-        holes_group.create_dataset(
-            "positions", data=np.stack(positions) if holes else np.zeros((0, 3))
-        )
-        holes_group.create_dataset(
-            "sizes", data=np.stack(sizes) if holes else np.zeros((0, 3))
-        )
-
-        grid = f.create_group("grid")
-        grid.create_dataset("cell_counts", data=padded.astype(np.int64))
-        grid.create_dataset("cell_idx", data=np.asarray(cell_idx, dtype=np.int64))
-        bgroup = grid.create_group("boundaries")
-        for name, desc in boundaries.items():
-            ds = bgroup.create_dataset(name, data=np.asarray(desc["idx"], dtype=np.int64))
-            ds.attrs["type"] = desc["type"]
-            ds.attrs["start"] = desc.get("start", 0)
-            ds.attrs["n"] = len(desc["idx"])
+    return write_case_file(file, *case_layout(**case))

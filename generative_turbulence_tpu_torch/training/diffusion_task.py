@@ -1,4 +1,4 @@
-"""The diffusion task: training step, diagnostics and sampling.
+"""The diffusion task: training step, diagnostics, sampling and evaluation.
 
 Port of ``generative_turbulence_tpu/training/diffusion_task.py``:
 ``DiffusionTask`` is built from a ``ModelConfig`` and the training-set
@@ -11,13 +11,15 @@ diffusion loss (with gradient accumulation, clipping and the warm-up EMA);
 when ``cfg.ema_decay > 0``.  The free ``sample`` function is the sampling
 step itself (``_sample_fn``): embed the cells into the dense grid,
 normalize, run a sampler with the epsilon-network, denormalize, and gather
-the cells back.
-
-Not ported yet: ``eval_step``, the sample stores and the metrics.
+the cells back.  With a dataset root, the task also evaluates:
+``eval_step`` samples a batch into the phase's sample store, and
+``on_eval_end`` scores the store with the phase's metric collection
+(``val/tke`` and the rest).
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -25,10 +27,13 @@ import torch
 from torch.func import functional_call
 from torch.profiler import record_function
 
+from ..data.dataset import Batch
 from ..data.grid import GridMap, embed_cells, gather_cells
 from ..data.schema import FieldStats
 from ..data.variables import Variable, total_dims
 from ..diffusion.gaussian import GaussianDiffusion, NoiseFn
+from ..eval.metrics import SampleMetricsCollection
+from ..eval.sample_store import SampleStore
 from ..models.conditioning import Conditioning
 from ..models.normalization import Normalizer
 from ..models.unet import DenoisingModel
@@ -95,7 +100,7 @@ def _share_parameters(dst: torch.nn.Module, src: torch.nn.Module) -> None:
 
 
 class DiffusionTask:
-    """The JAX package's ``DiffusionTask`` without its eval stores.
+    """The JAX package's ``DiffusionTask``.
 
     ``net`` computes in ``cfg.compute_dtype`` and trains; ``eval_net`` in
     ``cfg.eval_compute_dtype`` (None = the same) and samples.  Both hold the
@@ -107,6 +112,13 @@ class DiffusionTask:
     ``load_flax_params`` do, and so does the first ``training_step``).
     ``max_train_steps`` is the learning-rate schedule's length in optimizer
     updates, ``gradient_clip_val`` the global-norm clip.
+
+    ``data_root`` (the dataset root holding ``val/`` and ``test/``) and
+    ``samples_root`` set up evaluation: the sample stores
+    ``samples_root/{val,test}-samples.npyd`` and the metric collections
+    (``SampleMetricsCollection.default_metrics``, with the point-cloud
+    Wasserstein on ``wasserstein_solver``), each reading the ground truth of
+    its own split, on ``device``.
     """
 
     def __init__(
@@ -117,8 +129,12 @@ class DiffusionTask:
         *,
         max_train_steps: int = 1,
         gradient_clip_val: Optional[float] = 0.1,
+        data_root: Optional[Path] = None,
+        samples_root: Optional[Path] = None,
+        wasserstein_solver: str = "sinkhorn",
     ):
         self.cfg = cfg
+        self.device = torch.device(device)
         self.variables = Variable.parse_tuple(cfg.variables)
         if Variable.U not in self.variables:
             raise ValueError(f"the diffusion task needs u among its variables, got {cfg.variables!r}")
@@ -196,6 +212,18 @@ class DiffusionTask:
         self.step = 0
         self.opt_state: Optional[OptState] = None
         self.ema: Optional[Dict[str, torch.Tensor]] = None
+
+        self.sample_stores: Dict[str, SampleStore] = {}
+        self.metrics: Dict[str, SampleMetricsCollection] = {}
+        if data_root is not None:
+            if samples_root is None:
+                raise ValueError("evaluation needs a samples_root beside the data_root")
+            for phase in ("val", "test"):
+                self.sample_stores[phase] = SampleStore(Path(samples_root) / f"{phase}-samples.npyd", self.variables)
+                self.metrics[phase] = SampleMetricsCollection(
+                    phase, Path(data_root) / phase,
+                    SampleMetricsCollection.default_metrics(wasserstein_solver, device=self.device),
+                )
 
     # ---- state ---------------------------------------------------------------
 
@@ -341,3 +369,27 @@ class DiffusionTask:
             sampler=self.cfg.sampler, ddim_steps=self.cfg.ddim_steps,
             ddim_eta=self.cfg.ddim_eta, noise=noise, start_from=start_from,
         )
+
+    # ---- evaluation --------------------------------------------------------------
+
+    def eval_step(self, batch: Batch, noise: NoiseFn, phase: str) -> Dict[str, float]:
+        """Sample ``batch`` (moved to the task's device) with ``noise``, add
+        the samples to the phase's store, and return the samples' u std and
+        max |u| (``{phase}/sample-u-std``, ``{phase}/sample-u-absmax``): an
+        undertrained epsilon-network blows samples up by orders of magnitude
+        through the sampler chain."""
+        batch = batch.to(self.device)
+        samples = self.sample(batch.cells, batch.grid, noise).float().cpu().numpy()
+        self.sample_stores[phase].add_samples(samples, batch.metadata)
+        u = samples[..., : Variable.U.dims]
+        return {f"{phase}/sample-u-std": float(np.std(u)), f"{phase}/sample-u-absmax": float(np.abs(u).max())}
+
+    def on_eval_start(self, phase: str) -> None:
+        self.sample_stores[phase].reset()
+
+    def on_eval_end(self, stats: FieldStats, phase: str, *, expensive: bool) -> Dict[str, float]:
+        """The phase's metrics over its sample store.  ``cfg.
+        compute_expensive_sample_metrics`` gates the point-cloud Wasserstein
+        even when ``expensive`` asks for it."""
+        expensive = expensive and self.cfg.compute_expensive_sample_metrics
+        return self.metrics[phase].compute(self.sample_stores[phase], stats, expensive_metrics=expensive)

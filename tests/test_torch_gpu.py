@@ -352,3 +352,145 @@ def test_conv3d_3x3_matches_plain_on_gpu(shape, cin, cout, dtype):
     leaves = [t.float().requires_grad_() for t in (x, w, b)]
     ck.conv3d_3x3(*leaves).square().mean().backward()
     assert all(bool(torch.isfinite(t.grad).all()) and float(t.grad.abs().max()) > 0 for t in leaves)
+
+
+# ---- the evaluation path on the card --------------------------------------
+# The ops against the same functions on the CPU, a .npyd DataModule batch on
+# the card, and DiffusionTask.eval_step + on_eval_end on the card against the
+# same task on the CPU, at the small synthetic grid (24x10x10 cells).
+
+EVAL_OVERRIDES = ["model.dim=8", "model.u_net_levels=2", "model.timesteps=20", "model.sampler=ddim",
+                  "model.ddim_steps=4"]
+SPECTRA_RTOL = 1e-3  # cuFFT against pocketfft, f32
+SINKHORN_TOL = dict(rtol=1e-4)
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA Hopper GPU")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.fixture(scope="module")
+def npyd_root(tmp_path_factory):
+    from generative_turbulence_tpu_torch.data.synthetic import generate_synthetic_dataset
+
+    root = tmp_path_factory.mktemp("npyd") / "root"
+    return generate_synthetic_dataset(root, n_train_cases=1, n_val_cases=1, n_test_cases=0, n_frames=12,
+                                      format="npyd")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("points_shape", [(7, 3), (4, 9, 3)])
+def test_interp3_on_gpu(points_shape):
+    from generative_turbulence_tpu_torch.ops.interp import interp3
+
+    _needs_card()
+    rng = np.random.default_rng(0)
+    grid = torch.from_numpy(rng.normal(size=(2, 7, 6, 5)).astype(np.float32))
+    points = torch.from_numpy(rng.uniform(-1.5, 8.0, size=points_shape).astype(np.float32))  # past every face too
+    got = interp3(grid.cuda(), points.cuda())
+    assert got.is_cuda
+    np.testing.assert_allclose(got.cpu().numpy(), interp3(grid, points).numpy(), **F32_TOL)
+
+
+@pytest.mark.gpu
+def test_log_tke_distance_matrix_on_gpu():
+    from generative_turbulence_tpu_torch.ops.spectra import SpectrumOps, log_tke_distance_matrix
+
+    _needs_card()
+    rng = np.random.default_rng(1)
+    fields = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+              for s in ((3, 12, 10, 10, 3), (4, 12, 10, 10, 3), (12, 10, 10, 3))]
+    got = log_tke_distance_matrix(*(f.cuda() for f in fields), SpectrumOps.create(512, 16, device="cuda"))
+    want = log_tke_distance_matrix(*fields, SpectrumOps.create(512, 16, device="cpu"))
+    assert got[0].shape == (3, 4) and got[0].is_cuda
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=SPECTRA_RTOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_matrix_reg", [False, True], ids=["scalar-reg", "per-matrix-reg"])
+def test_masked_sinkhorn_emd2_on_gpu(per_matrix_reg):
+    """Padded clouds of mixed sizes (9x7, 4x11, 11x11 of an 11x11 pad)."""
+    from generative_turbulence_tpu_torch.ops.sinkhorn import masked_sinkhorn_emd2
+
+    _needs_card()
+    rng = np.random.default_rng(2)
+    M = torch.from_numpy(np.abs(rng.normal(size=(3, 11, 11))).astype(np.float32))
+    rows = torch.arange(11)[None, :] < torch.tensor([[9], [4], [11]])
+    cols = torch.arange(11)[None, :] < torch.tensor([[7], [11], [11]])
+    M[~(rows[:, :, None] & cols[:, None, :])] = 123.0
+    reg = torch.tensor([0.05, 0.1, 0.2]) if per_matrix_reg else 0.1
+    on_card = reg.cuda() if per_matrix_reg else reg
+    got = masked_sinkhorn_emd2(M.cuda(), rows.cuda(), cols.cuda(), reg=on_card, n_iters=300)
+    want = masked_sinkhorn_emd2(M, rows, cols, reg=reg, n_iters=300)
+    assert got.is_cuda and bool((got < 10).all())  # no mass on the padding
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **SINKHORN_TOL)
+
+
+@pytest.mark.gpu
+def test_npyd_datamodule_batch_on_gpu(npyd_root):
+    from generative_turbulence_tpu_torch.data.dataset import DataModule
+
+    _needs_card()
+    host = next(iter(DataModule(npyd_root, eval_batch_size=4, val_samples=4).setup("validate").val_batches()))
+    dm = DataModule(npyd_root, eval_batch_size=4, val_samples=4, device="cuda").setup("validate")
+    batch = next(iter(dm.val_batches()))  # moved to the card in the prefetch thread
+    assert batch.cells.is_cuda and batch.grid.cell_idx.is_cuda and batch.grid.cell_types.is_cuda
+    np.testing.assert_array_equal(batch.cells.cpu().numpy(), host.cells)
+    moved = host.to("cuda")
+    assert moved.cells.is_cuda and moved.to("cuda") is moved
+    np.testing.assert_array_equal(moved.cells.cpu().numpy(), host.cells)
+
+
+class _HostNoise:
+    """Standard normals from a seeded CPU generator, handed out on ``device``:
+    the same draws on the CPU and on the card."""
+
+    def __init__(self, seed: int, device):
+        self.generator, self.device = torch.Generator().manual_seed(seed), device
+
+    def __call__(self, shape):
+        return torch.randn(tuple(shape), generator=self.generator).to(self.device)
+
+
+@pytest.mark.gpu
+def test_eval_step_and_on_eval_end_on_gpu(npyd_root, tmp_path):
+    """The 2-level f32 task (dim 8, DDIM-4) on the card and on the CPU with
+    the same weights and draws: ``eval_step``'s sample statistics at rtol
+    1e-3, and ``on_eval_end``'s ``val/tke`` and Sinkhorn ``val/wasserstein``
+    (2 regions, 300 iterations, on each task's device) at rtol 5e-3."""
+    from generative_turbulence_tpu_torch.data.dataset import DataModule
+    from generative_turbulence_tpu_torch.eval.metrics import WassersteinMetric
+    from generative_turbulence_tpu_torch.training.config import parse_cli_overrides
+    from generative_turbulence_tpu_torch.training.diffusion_task import DiffusionTask
+
+    _needs_card()
+    dm = DataModule(npyd_root, eval_batch_size=4, val_samples=4).setup("validate")
+    batch = next(iter(dm.val_batches()))
+    cfg = parse_cli_overrides(EVAL_OVERRIDES).resolved().model
+    results = {}
+    for device in ("cpu", "cuda"):
+        task = DiffusionTask(cfg, dm.stats, device, data_root=npyd_root, samples_root=tmp_path / device)
+        if device == "cpu":
+            task.net.init_weights(torch.Generator().manual_seed(0))
+            weights = task.net.state_dict()
+        else:
+            task.net.load_state_dict(weights)
+        for metric in task.metrics["val"].metrics:
+            if isinstance(metric, WassersteinMetric):
+                assert metric.solver == "sinkhorn" and metric.device == torch.device(device)
+                metric.max_regions, metric.sinkhorn_iters = 2, 300
+        task.on_eval_start("val")
+        step = task.eval_step(batch, _HostNoise(0, device), "val")
+        assert task.sample_stores["val"].n_samples("case-val-00") == 4
+        results[device] = (step, task.on_eval_end(dm.stats, "val", expensive=True))
+    (step, values), (want_step, want_values) = results["cuda"], results["cpu"]
+    assert sorted(step) == sorted(want_step) and sorted(values) == sorted(want_values)
+    for name in ("val/sample-u-std", "val/sample-u-absmax"):
+        np.testing.assert_allclose(step[name], want_step[name], rtol=1e-3)
+    for name in ("val/tke", "val/tke-back", "val/wasserstein"):
+        assert np.isfinite(values[name]) and values[name] >= 0
+        np.testing.assert_allclose(values[name], want_values[name], rtol=5e-3)

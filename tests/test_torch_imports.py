@@ -30,9 +30,13 @@ def test_port_imports_no_jax_flax_h5py():
     )
     assert res.returncode == 0, res.stderr
     n_modules, banned, names = res.stdout.strip().splitlines()
-    assert int(n_modules) >= 27  # every sub-package and module of slices 1-5
+    assert int(n_modules) >= 38  # every sub-package and module of slices 1-6
     assert {"generative_turbulence_tpu_torch.training.optimizers",
             "generative_turbulence_tpu_torch.training.checkpoint"} <= set(names.split())
+    assert {f"generative_turbulence_tpu_torch.{name}" for name in (
+        "data.npyd", "data.dataset", "ops.quadrature", "ops.stencils", "ops.spectra", "ops.sinkhorn",
+        "eval", "eval.emd", "eval.sample_store", "eval.metrics", "toolchain.h5_to_npyd",
+    )} <= set(names.split())
     assert banned == "BANNED []"
 
 
