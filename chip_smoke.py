@@ -82,6 +82,21 @@ Run from the repository root:  python3 chip_smoke.py
    Sinkhorn Wasserstein within 15% of the exact host EMD over 4 regions.
    Prints one ``eval_path`` JSON line (seconds of each part, values, peak
    memory, launches).
+6c. Training entry point: a ``.npyd`` dataset of the shapes grid (1 train
+   and 1 val case, 36 frames), then ``instantiate_data_and_task`` and
+   ``Trainer.fit`` on the card from overrides that mirror
+   ``config/shapes_*.yaml``: the paper's diffusion run for 2 epochs with a
+   DDIM-10 validation after each, then a second run resumed from its
+   checkpoint for a third; TF-Net (micro-batch 2 x accumulation 3) and
+   DilResNet (batch 3, N 4, hidden 48) for 6 micro-steps and a validation
+   each (TF-Net's 27-step rollout; DilResNet's cut to 4 steps).  Checks:
+   finite losses, the run files and the monitor, the chain counters at 7
+   per train step and 4 x 26 U-Net evaluations per validation, resume at
+   the saved step and epoch, every parameter changed (TF-Net's BatchNorm
+   statistics among them), DilResNet's tracked batches, no launch on the
+   baselines' paths, and each baseline's f32 forward on the card against
+   the CPU.  Prints one ``trainer`` JSON line (ms per step, validation and
+   checkpoint seconds, peak memory, launches).
 7. Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
    Every kernel's entry has its time, its bound (``bound_ms``: the larger of
    its bytes over the memory rate and its operations over the peak rate of
@@ -89,7 +104,8 @@ Run from the repository root:  python3 chip_smoke.py
    plain version's time, the library call's (``library_ms``, or null where
    no one torch call computes the same function) and its launches on each
    main path (``launches_by_path``: per sampler run, per train step on
-   the train paths, and per ``eval_step`` on the eval paths).
+   the train paths, per ``eval_step`` on the eval paths, and per Trainer
+   step and validation on the Trainer's).
 
 Any failure exits non-zero before the last line.
 """
@@ -1166,16 +1182,17 @@ def timed_call(torch, fn, seconds: dict, key: str):
     return run
 
 
-def write_eval_dataset(root: Path) -> float:
-    """The eval path's dataset under ``root``; returns the seconds it took
-    (the cases, their side files and ``compute_stats``)."""
+def write_eval_dataset(root: Path, n_frames: int = EVAL_FRAMES, label: str = "6b") -> float:
+    """The shapes grid as a dataset under ``root`` (1 train and 1 val case
+    of ``n_frames`` frames); returns the seconds it took (the cases, their
+    side files and ``compute_stats``)."""
     import numpy as np
 
     from generative_turbulence_tpu_torch.data.schema import read_metadata
     from generative_turbulence_tpu_torch.data.synthetic import generate_synthetic_dataset
 
     tic = time.perf_counter()
-    generate_synthetic_dataset(root, n_train_cases=1, n_val_cases=1, n_test_cases=0, n_frames=EVAL_FRAMES,
+    generate_synthetic_dataset(root, n_train_cases=1, n_val_cases=1, n_test_cases=0, n_frames=n_frames,
                                cell_counts=(192, 48, 48), seed=0, format="npyd")
     seconds = time.perf_counter() - tic
     # Test-data preparation: the generator cuts a case into 4 regions, about
@@ -1185,7 +1202,7 @@ def write_eval_dataset(root: Path) -> float:
     case = root / "val" / "case-val-00"
     n_cells = read_metadata(case / "data.npyd").n_cells
     np.savez(case / "regions.npz", assignments=np.arange(n_cells) // EVAL_REGION_CELLS)
-    log(f"[6b] eval dataset: 1 train + 1 val case of 192x48x48 cells, {EVAL_FRAMES} frames, .npyd, "
+    log(f"[{label}] dataset: 1 train + 1 val case of 192x48x48 cells, {n_frames} frames, .npyd, "
         f"stats computed, in {seconds!r} s; val regions of {EVAL_REGION_CELLS} cells")
     return seconds
 
@@ -1349,6 +1366,307 @@ def eval_phase(torch, ck, root: Path, label: str, overrides: list, n_evals: int,
     return launches, row
 
 
+# Phase 6c, the training entry point: the shapes grid as a .npyd dataset of 1
+# train and 1 val case with enough consecutive frames for TF-Net's eval
+# window (context 6 + 27 unroll steps = 33).
+TRAINER_FRAMES = 36
+# Each family's config/shapes_*.yaml as overrides (the card has no PyYAML),
+# with the smoke run's cuts: every frame kept (the diffusion file drops the
+# first 0.025 s), no point-cloud Wasserstein (phase 6b times it) and no
+# plots (the card has no matplotlib).
+TRAINER_DDIM_STEPS = 10
+TRAINER_CUTS = ["data.discard_first_seconds=-1", "model.compute_expensive_sample_metrics=false",
+                "trainer.render_plots=false"]
+TRAINER_RUNS = {
+    # The paper's run; 2 epochs (trainer.max_steps, set from the data) with
+    # a validation after each at DDIM-10, then a resumed third.
+    "diffusion": ["model=diffusion", "model.compute_dtype=bfloat16", "model.remat=true", "model.ema_decay=0.999",
+                  "model.sampler=ddim", f"model.ddim_steps={TRAINER_DDIM_STEPS}", "data.val_samples=8",
+                  "trainer.max_epochs=10",
+                  "trainer.check_val_every_n_epoch=1"],
+    # Micro-batch 2 x accumulate_steps 3 (the effective batch 6 the file's
+    # comment means; its batch_size 2 would give micro-batches of 1), the
+    # reference's eval batch 4 (the file's 1 was for a 16 GB chip).
+    "tfnet": ["model=tfnet", "model.batch_size=6", "model.accumulate_steps=3", "model.eval_batch_size=4",
+              "model.context_window=6", "model.unroll_steps=4", "model.eval_unroll_steps=27",
+              "model.sample_steps=[21,25,26]", "model.main_sample_step=25", "model.temporal_filtering_length=4",
+              "model.learning_rate=1e-3", "model.max_epochs=20", "model.monitor=val/tke",
+              "model.compute_dtype=bfloat16", "data.val_samples=4", "trainer.max_epochs=20", "trainer.max_steps=6"],
+    # The rollout cut from 27 steps to 4 (the sample steps with it): a
+    # DilResNet trained for 6 steps adds ~sqrt(dx_var) x 4 per step and grows
+    # with its input, so by step 27 the spectra overflow f32 and the TKE
+    # distance's assignment fails, as the JAX task's would.
+    "dilresnet": ["model=dilresnet", "model.batch_size=3", "model.eval_batch_size=4", "model.context_window=1",
+                  "model.unroll_steps=1", "model.eval_unroll_steps=4", "model.sample_steps=[2,3,4]",
+                  "model.main_sample_step=4", "model.N=4", "model.hidden_dim=48", "model.training_noise_std=1e-3",
+                  "model.learning_rate=1e-3", "model.min_learning_rate=1e-6", "model.lr_decay=exp",
+                  "model.max_epochs=8", "model.monitor=val/tke", "model.compute_dtype=bfloat16",
+                  "data.val_samples=4", "trainer.max_epochs=8", "trainer.max_steps=6"],
+}
+# U-Net evaluations of one diffusion validation: the eps-loss diagnostics at
+# 8 timesteps with the parameters and with the EMA, and DDIM-10 on the one
+# val batch of 8.
+DIAGNOSTIC_EVALS = 2 * 8
+# The baselines' forwards on the card against the CPU: f32, a cut of the
+# grid with odd and even extents (TF-Net's stride-2 padding and clipping).
+FORWARD_CHECK_GRID = (26, 20, 15)
+
+
+class TrainerMeter:
+    """Wraps a Trainer's task and checkpoint manager: CUDA events around each
+    train step, the kernel launches of the steps and of the validations
+    apart, the steps' losses and the host seconds of each validation and
+    checkpoint save (the card synchronised)."""
+
+    def __init__(self, torch, ck):
+        self.torch, self.ck = torch, ck
+        self.events, self.losses, self.first_step = [], [], None
+        self.launches = {"step": {}, "validation": []}
+        self.seconds = {"validation_s": [], "checkpoint_save_s": []}
+
+    def _launches_since(self, before) -> dict:
+        return {k: v - before.get(k, 0) for k, v in self.ck.LAUNCH_COUNTS.items()}
+
+    def step(self, task, fn):
+        def run(*args, **kwargs):
+            if self.first_step is None:
+                self.first_step = task.step
+            before = dict(self.ck.LAUNCH_COUNTS)
+            start, end = (self.torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.events.append((start, end))
+            self.losses.append(out["train/loss"])
+            for k, v in self._launches_since(before).items():
+                self.launches["step"][k] = self.launches["step"].get(k, 0) + v
+            return out
+
+        return run
+
+    def timed(self, fn, key: str, count: bool = False):
+        def run(*args, **kwargs):
+            before = dict(self.ck.LAUNCH_COUNTS)
+            self.torch.cuda.synchronize()
+            tic = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            self.seconds[key].append(time.perf_counter() - tic)
+            if count:
+                self.launches["validation"].append(self._launches_since(before))
+            return out
+
+        return run
+
+    def step_ms(self) -> list:
+        """ms of each step after the first (CUDA events)."""
+        self.torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events[1:]]
+
+    def interval_ms(self, n_batches: int) -> list:
+        """ms from one step's end to the next's within an epoch (the step and
+        any wait for its batch), after the first step."""
+        ends = [e for _, e in self.events]
+        return [a.elapsed_time(b) for i, (a, b) in enumerate(zip(ends, ends[1:]), start=1)
+                if (self.first_step + i) % n_batches]
+
+
+def run_trainer(torch, ck, family: str, root: Path, out_dir: Path, extra=(), epochs_cap: int = 0) -> dict:
+    """``instantiate_data_and_task`` + ``Trainer.fit`` on the card for one
+    family's overrides (``epochs_cap``: trainer.max_steps set to that many
+    epochs of the data), measured by a ``TrainerMeter``; the checks common
+    to the families: finite losses, the files of a run, the monitor."""
+    from generative_turbulence_tpu_torch.training.checkpoint import CheckpointManager
+    from generative_turbulence_tpu_torch.training.config import parse_cli_overrides
+    from generative_turbulence_tpu_torch.training.factory import instantiate_data_and_task
+    from generative_turbulence_tpu_torch.training.loop import Trainer
+
+    overrides = TRAINER_RUNS[family] + TRAINER_CUTS + [f"data.root={root}", f"trainer.out_dir={out_dir}", *extra]
+    config = parse_cli_overrides(overrides).resolved()
+    tic = time.perf_counter()
+    dm, task = instantiate_data_and_task(config, "cuda")
+    n_batches = dm.n_train_batches()
+    if epochs_cap:
+        config.trainer.max_steps = epochs_cap * n_batches
+    trainer = Trainer(config, task, dm)
+    setup_s = time.perf_counter() - tic
+    meter, start, epochs, restore_s = TrainerMeter(torch, ck), {}, [], []
+
+    def init_and_keep(init):
+        def run(generator):
+            out = init(generator)
+            start.update({n: p.detach().clone() for n, p in task.net.named_parameters()})
+            if getattr(task, "ema", None) is not None:
+                start.update({f"ema.{n}": e.clone() for n, e in task.ema.items()})
+            return out
+        return run
+
+    def train_batches(epoch=0):
+        epochs.append(epoch)
+        return batches_of(epoch)
+
+    def restore(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        out = restore_of(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        restore_s.append(time.perf_counter() - tic)
+        return out
+
+    batches_of, restore_of = dm.train_batches, CheckpointManager.restore
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    tic = time.perf_counter()
+    with patched(task, "init_weights", init_and_keep(task.init_weights)), \
+            patched(task, "training_step", meter.step(task, task.training_step)), \
+            patched(trainer, "validate", meter.timed(trainer.validate, "validation_s", count=True)), \
+            patched(trainer.ckpt, "save_last", meter.timed(trainer.ckpt.save_last, "checkpoint_save_s")), \
+            patched(trainer.ckpt, "save_best", meter.timed(trainer.ckpt.save_best, "checkpoint_save_s")), \
+            patched(dm, "train_batches", train_batches), patched(CheckpointManager, "restore", restore):
+        metrics = trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - tic
+    trainer.logger.close()
+    launches = dict(ck.LAUNCH_COUNTS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(v) for v in meter.losses]
+    step_ms, interval_ms = meter.step_ms(), meter.interval_ms(n_batches)
+    first_step_ms = meter.events[0][0].elapsed_time(meter.events[0][1])
+    other_s = (fit_s - (first_step_ms + sum(interval_ms)) / 1e3 - sum(meter.seconds["validation_s"])
+               - sum(meter.seconds["checkpoint_save_s"]))
+
+    label = f"{family}{' (resumed)' if any('resume_from' in e for e in extra) else ''}"
+    check(all(math.isfinite(v) for v in losses), f"trainer {label}: non-finite loss in {losses}")
+    summary = json.loads((out_dir / "summary.json").read_text())
+    files = {p.name for p in (out_dir / "checkpoints").iterdir()}
+    check((out_dir / "metrics.jsonl").is_file() and {"last.pt", "best.pt", "config.json"} <= files,
+          f"trainer {label}: run files {files}")
+    check(task.monitor in summary and math.isfinite(metrics.get(task.monitor, math.nan)),
+          f"trainer {label}: {task.monitor} = {metrics.get(task.monitor)}, summary {summary}")
+    row = {"setup_s": setup_s, "fit_s": fit_s, "n_train_batches": n_batches, "micro_steps": len(losses),
+           "first_step": meter.first_step, "epochs": epochs, "final_step": task.step,
+           "step_ms": step_ms, "median_step_ms": statistics.median(step_ms) if step_ms else None,
+           "first_step_ms": first_step_ms, "step_interval_ms": interval_ms,
+           "median_step_interval_ms": statistics.median(interval_ms) if interval_ms else None,
+           "other_s": other_s,
+           "losses": losses, "validation_s": meter.seconds["validation_s"],
+           "checkpoint_save_s": meter.seconds["checkpoint_save_s"], "restore_s": restore_s, "peak_gib": peak,
+           "launches": launches, "launches_in_steps": meter.launches["step"],
+           "launches_per_validation": meter.launches["validation"],
+           "monitor": {task.monitor: metrics[task.monitor]}, "n_params": task.n_params()}
+    log(f"  {label}: {len(losses)} micro-steps in {fit_s!r} s (set-up {setup_s!r} s, {n_batches} batches per "
+        f"epoch, epochs {epochs}, steps {meter.first_step}..{task.step}); step ms {step_ms!r} (first, cold: "
+        f"{first_step_ms!r}; end to end within an epoch {interval_ms!r}); validations "
+        f"{row['validation_s']!r} s; checkpoint saves {row['checkpoint_save_s']!r} s; restore {restore_s!r} s; "
+        f"the rest of the fit (set-up, restore, waits at epoch ends) {other_s!r} s; "
+        f"peak {peak!r} GiB; losses {losses!r}; {task.monitor} {metrics[task.monitor]!r}; launches {launches}")
+    return {"row": row, "task": task, "dm": dm, "start": start, "n_batches": n_batches}
+
+
+def changed_parameters(torch, run: dict, label: str) -> None:
+    """Every parameter (and EMA leaf) moved from where the run started."""
+    task, start = run["task"], run["start"]
+    now = dict(task.net.named_parameters())
+    if getattr(task, "ema", None) is not None:
+        now.update({f"ema.{n}": e for n, e in task.ema.items()})
+    same = [n for n, v in start.items() if torch.equal(now[n].detach(), v)]
+    check(len(start) == len(now) and not same, f"trainer {label}: unchanged by training: {same[:8]}")
+    log(f"    every one of {len(start)} parameters{' and EMA leaves' if 'ema' in ''.join(start) else ''} changed")
+
+
+def forward_card_vs_cpu(torch, run: dict, family: str) -> float:
+    """The trained baseline in f32 on the card against the same module on
+    the CPU (TF32 off), on ``FORWARD_CHECK_GRID`` with the data's cell types
+    there; returns the largest absolute difference."""
+    import dataclasses
+
+    from generative_turbulence_tpu_torch.data.grid import GridMap
+
+    task = run["task"]
+    cfg = dataclasses.replace(task.cfg, compute_dtype="float32")
+    nets = {d: type(task)(cfg, run["dm"].stats, d).net for d in ("cpu", "cuda")}
+    weights = {k: v.float().cpu() for k, v in task.net.state_dict().items()}
+    for net in nets.values():
+        net.load_state_dict(weights)
+    X, Y, Z = FORWARD_CHECK_GRID
+    repo = run["dm"].val_dataset.repo
+    grid = GridMap.from_metadata(repo.read_metadata(0), task.variables, device="cpu")
+    cell_types = grid.cell_types[:X, :Y, :Z]
+    gen = torch.Generator().manual_seed(5)
+    shape = (2, cfg.context_window, X, Y, Z, task.n_features) if family == "tfnet" else (2, X, Y, Z, task.n_features)
+    x = torch.randn(shape, generator=gen)
+    with torch.no_grad():
+        want = nets["cpu"](x, cell_types)
+        got = nets["cuda"](x.cuda(), cell_types.cuda())
+    check(tuple(got.shape) == (2, X, Y, Z, task.n_features), f"{family} forward shape {tuple(got.shape)}")
+    return compare_f32(torch, got.cpu(), want, f"{family} forward (f32) on the card vs the CPU at {X}x{Y}x{Z}")
+
+
+def trainer_phase(torch, ck, root: Path) -> tuple:
+    """Phase 6c: the three families through the factory and ``Trainer.fit``
+    on the card; the diffusion run killed after 2 epochs and resumed for a
+    third.  Returns the launch counts of the diffusion runs and the
+    ``trainer`` JSON row."""
+    rows = {}
+    log(f"[6c] training entry point: instantiate_data_and_task + Trainer.fit; {' '.join(TRAINER_CUTS)}")
+    out = root / "runs"
+
+    log(f"  diffusion: {' '.join(TRAINER_RUNS['diffusion'])}")
+    first = run_trainer(torch, ck, "diffusion", root, out / "diffusion", epochs_cap=2)
+    n = first["n_batches"]
+    changed_parameters(torch, first, "diffusion")
+    resumed = run_trainer(torch, ck, "diffusion", root, out / "diffusion-resumed", epochs_cap=3,
+                          extra=[f"trainer.resume_from={out / 'diffusion' / 'checkpoints'}"])
+    r0, r1 = first["row"], resumed["row"]
+    check(r0["final_step"] == 2 * n and r0["epochs"] == [0, 1] and len(r0["launches_per_validation"]) == 2,
+          f"diffusion: steps {r0['final_step']}, epochs {r0['epochs']}, validations {len(r0['launches_per_validation'])}")
+    check(r1["first_step"] == 2 * n and r1["epochs"] == [2] and r1["final_step"] == 3 * n and r1["restore_s"],
+          f"diffusion resumed at step {r1['first_step']} (saved {2 * n}), epochs {r1['epochs']}, "
+          f"final step {r1['final_step']}")
+    log(f"    resumed at the saved step {r1['first_step']} = epoch {r1['first_step'] // n} x {n} batches")
+    val_evals = DIAGNOSTIC_EVALS + TRAINER_DDIM_STEPS
+    for row in (r0, r1):
+        for name in CHAIN_KERNELS:
+            want = TRAIN_CHAIN_LAUNCHES * row["micro_steps"]
+            check(row["launches_in_steps"][name] == want,
+                  f"trainer steps: {name} launched {row['launches_in_steps'][name]} times, expected {want}")
+            for counts in row["launches_per_validation"]:
+                check(counts[name] == len(ENGAGED_BLOCKS) * val_evals,
+                      f"trainer validation: {name} launched {counts[name]} times, expected "
+                      f"{len(ENGAGED_BLOCKS) * val_evals}")
+        check(row["launches"]["flash_attention"] == 0 and row["launches"]["conv3d_3x3"] == 0,
+              f"trainer: flash_attention / conv3d_3x3 launched at 4 levels: {row['launches']}")
+    log(f"    launches: {TRAIN_CHAIN_LAUNCHES} per train step and {len(ENGAGED_BLOCKS)} x {val_evals} U-Net "
+        f"evaluations per validation for each chain kernel (as expected)")
+    rows["diffusion"], rows["diffusion_resumed"] = r0, r1
+
+    for family in ("tfnet", "dilresnet"):
+        log(f"  {family}: {' '.join(TRAINER_RUNS[family])}")
+        if family == "dilresnet":
+            log("    cut: the eval rollout of 27 steps to 4 (an untrained DilResNet's 27-step rollout overflows f32)")
+        run = run_trainer(torch, ck, family, root, out / family)
+        row, task = run["row"], run["task"]
+        changed_parameters(torch, run, family)
+        check(not any(row["launches"].values()), f"{family}: a kernel launched on the regression path: "
+              f"{row['launches']}")
+        if family == "tfnet":
+            n_stats = sum(1 for name in run["start"] if name.endswith(("_bn.mean", "_bn.var")))
+            check(n_stats == 30 and task.opt_state.count == row["micro_steps"] // 3,
+                  f"tfnet: {n_stats} BatchNorm statistics, {task.opt_state.count} updates")
+            log(f"    the 30 BatchNorm means and variances among them; {task.opt_state.count} optimizer updates")
+        else:
+            check(task.n_tracked == row["micro_steps"] and bool(torch.isfinite(task.dx_var).all()),
+                  f"dilresnet: n_tracked {task.n_tracked} after {row['micro_steps']} micro-steps")
+            row["dx_mean"], row["dx_var"] = task.dx_mean.tolist(), task.dx_var.tolist()
+            log(f"    n_tracked {task.n_tracked} = micro-steps; dx_mean {row['dx_mean']}, dx_var {row['dx_var']}")
+        row["forward_card_vs_cpu_max_abs_err"] = forward_card_vs_cpu(torch, run, family)
+        rows[family] = row
+        del run, task
+        torch.cuda.empty_cache()
+    launches = {k: r0["launches"][k] + r1["launches"][k] for k in r0["launches"]}
+    return launches, rows
+
 
 def main() -> int:
     if not (ROOT / "generative_turbulence_tpu_torch").is_dir():
@@ -1392,25 +1710,39 @@ def main() -> int:
             for label, overrides, n_evals, flash_per_eval in EVAL_RUNS:
                 eval_launches[label], eval_rows[label] = eval_phase(
                     torch, ck, Path(tmp), label, overrides, n_evals, flash_per_eval)
+        with tempfile.TemporaryDirectory() as tmp:
+            tic = time.perf_counter()
+            trainer_rows = {"dataset_frames": TRAINER_FRAMES,
+                            "dataset_write_s": write_eval_dataset(Path(tmp), TRAINER_FRAMES, "6c")}
+            trainer_launches, runs = trainer_phase(torch, ck, Path(tmp))
+            trainer_rows.update(runs, phase_s=time.perf_counter() - tic)
+            log(f"  phase 6c took {trainer_rows['phase_s']!r} s")
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1
     timings.update(timings2)
     profiles += [train_profile4, train_profile2]
     # Launches on the main paths (the 4-level and the 2-level sampler runs,
-    # train steps and eval steps), each counted from 0 just before the path
-    # runs; the train paths per step, the eval paths per eval_step.
+    # train steps, eval steps and the Trainer's runs), each counted from 0
+    # just before the path runs; the train paths per step, the eval paths per
+    # eval_step, the Trainer per train step and per validation.
+    diffusion = trainer_rows["diffusion"]
     for entry in kernels:
         name = entry["name"]
         entry["launches"] = (launches4[name] + launches2[name] + train_launches4[name] + train_launches2[name]
-                             + sum(counts[name] for counts in eval_launches.values()))
+                             + sum(counts[name] for counts in eval_launches.values()) + trainer_launches[name])
         entry["launches_by_path"] = {
             "4_levels": launches4[name], "2_levels": launches2[name],
             "train_4_levels": train4["launches_per_step"][name],
             "train_2_levels": train2["launches_per_step"][name],
             **{f"eval_{label}": counts[name] for label, counts in eval_launches.items()},
+            "trainer_diffusion_per_step": diffusion["launches_in_steps"][name] / diffusion["micro_steps"],
+            "trainer_diffusion_per_validation": diffusion["launches_per_validation"][0][name],
+            "trainer_tfnet": trainer_rows["tfnet"]["launches"][name],
+            "trainer_dilresnet": trainer_rows["dilresnet"]["launches"][name],
         }
     log(f"[7] card: {smi}")
+    print(json.dumps({"trainer": trainer_rows, "card": smi}))
     print(json.dumps({"eval_path": eval_rows, "card": smi}))
     print(json.dumps({"blocks": block_rows, "main_path": timings, "profiles": profiles,
                       "train": [train4, train2]}))

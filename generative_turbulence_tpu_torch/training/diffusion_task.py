@@ -14,7 +14,7 @@ normalize, run a sampler with the epsilon-network, denormalize, and gather
 the cells back.  With a dataset root, the task also evaluates:
 ``eval_step`` samples a batch into the phase's sample store, and
 ``on_eval_end`` scores the store with the phase's metric collection
-(``val/tke`` and the rest).
+(``val/tke`` and the rest), and ``render_plots`` draws its diagnostics.
 """
 
 from __future__ import annotations
@@ -139,6 +139,7 @@ class DiffusionTask:
         if Variable.U not in self.variables:
             raise ValueError(f"the diffusion task needs u among its variables, got {cfg.variables!r}")
         self.normalizer = Normalizer.from_stats(stats, self.variables, cfg.normalization_mode)
+        self.monitor = cfg.monitor
         n_features = total_dims(self.variables)
 
         def build_net(net_dtype: Optional[torch.dtype]) -> DenoisingModel:
@@ -393,3 +394,11 @@ class DiffusionTask:
         even when ``expensive`` asks for it."""
         expensive = expensive and self.cfg.compute_expensive_sample_metrics
         return self.metrics[phase].compute(self.sample_stores[phase], stats, expensive_metrics=expensive)
+
+    def render_plots(self, out_dir, phase: str, step: int):
+        """TKE-spectrum and slice plots of the phase's last evaluation under
+        ``out_dir/plots/<phase>-<step>/`` (``eval.plots``); without
+        matplotlib, one console line and no plots."""
+        from ..eval.plots import render_eval_plots
+
+        return render_eval_plots(out_dir, self.sample_stores[phase], self.metrics[phase], self.variables, phase, step)

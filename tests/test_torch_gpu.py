@@ -446,14 +446,18 @@ def test_npyd_datamodule_batch_on_gpu(npyd_root):
 
 
 class _HostNoise:
-    """Standard normals from a seeded CPU generator, handed out on ``device``:
-    the same draws on the CPU and on the card."""
+    """Standard normals (and ``randint``'s timesteps) from a seeded CPU
+    generator, handed out on ``device``: the same draws on the CPU and on
+    the card."""
 
     def __init__(self, seed: int, device):
         self.generator, self.device = torch.Generator().manual_seed(seed), device
 
     def __call__(self, shape):
         return torch.randn(tuple(shape), generator=self.generator).to(self.device)
+
+    def randint(self, n: int, high: int):
+        return torch.randint(0, high, (n,), generator=self.generator).to(self.device)
 
 
 @pytest.mark.gpu
@@ -494,3 +498,92 @@ def test_eval_step_and_on_eval_end_on_gpu(npyd_root, tmp_path):
     for name in ("val/tke", "val/tke-back", "val/wasserstein"):
         assert np.isfinite(values[name]) and values[name] >= 0
         np.testing.assert_allclose(values[name], want_values[name], rtol=5e-3)
+
+
+# ---- the training entry point on the card ----------------------------------
+# Trainer.fit through the factory on the card against the same run on the
+# CPU, and the baselines' forwards on the card against the CPU's.
+
+TRAINER_OVERRIDES = ["model.dim=8", "model.u_net_levels=1", "model.timesteps=20", "model.sampler=ddim",
+                     "model.ddim_steps=2", "model.batch_size=4", "model.ema_decay=0.9",
+                     "model.compute_expensive_sample_metrics=false", "data.discard_first_seconds=-1",
+                     "data.val_samples=4", "data.eval_batch_size=4", "trainer.max_epochs=1",
+                     "trainer.log_every_n_steps=1", "trainer.render_plots=false"]
+
+
+def _logged(run_dir, key):
+    import json
+
+    records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    return {r["step"]: r[key] for r in records if key in r}
+
+
+@pytest.mark.gpu
+def test_trainer_fit_epoch_on_gpu(npyd_root, tmp_path):
+    """One epoch (3 steps) and its validation through
+    ``instantiate_data_and_task`` and ``Trainer.fit`` (dim 8, 1 level, f32)
+    on the card and on the CPU, from the same start and draws: the logged
+    losses at rtol 1e-3, ``val/tke`` at rtol 5e-3; the card's batches,
+    parameters and EMA on the card, its checkpoints written."""
+    import copy
+
+    from generative_turbulence_tpu_torch.training.config import parse_cli_overrides
+    from generative_turbulence_tpu_torch.training.factory import instantiate_data_and_task
+    from generative_turbulence_tpu_torch.training.loop import Trainer, key_seed
+
+    _needs_card()
+    start, runs = None, {}
+    for device in ("cpu", "cuda"):
+        out = tmp_path / device
+        config = parse_cli_overrides(TRAINER_OVERRIDES + [f"data.root={npyd_root}", f"trainer.out_dir={out}"])
+        dm, task = instantiate_data_and_task(config.resolved(), device)
+        if start is None:
+            start = copy.deepcopy(task.init_weights(torch.Generator().manual_seed(0)).state_dict())
+        noise = lambda kind, *key, d=device: _HostNoise(key_seed(0, kind, *key), d)  # noqa: E731
+        metrics = Trainer(config, task, dm, noise_factory=noise).fit(copy.deepcopy(start))
+        assert task.step == dm.n_train_batches() == 3 and np.isfinite(metrics["val/tke"])
+        assert {"last.pt", "best.pt"} <= {p.name for p in (out / "checkpoints").iterdir()}
+        runs[device] = (out, task, metrics)
+    (out, task, metrics), (want_out, _, want) = runs["cuda"], runs["cpu"]
+    assert next(task.net.parameters()).is_cuda and all(e.is_cuda for e in task.ema.values())
+    assert next(iter(dm.train_batches(0))).cells.is_cuda
+    got, ref = _logged(out, "train/loss"), _logged(want_out, "train/loss")
+    assert got.keys() == ref.keys() == {1, 2, 3}
+    np.testing.assert_allclose([got[k] for k in ref], [ref[k] for k in ref], rtol=1e-3)
+    np.testing.assert_allclose(metrics["val/tke"], want["val/tke"], rtol=5e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", [(11, 9, 7), (12, 8, 8)], ids=["odd", "even"])
+@pytest.mark.parametrize("model", ["tfnet", "dilresnet"])
+def test_baseline_forward_on_gpu(model, grid):
+    """TF-Net and DilResNet (f32) on the card against the same module on the
+    CPU, TF-Net's BatchNorm statistics away from (0, 1): f32 tolerance."""
+    from generative_turbulence_tpu_torch.models.conditioning import Conditioning
+    from generative_turbulence_tpu_torch.models.dilresnet import DilResNet
+    from generative_turbulence_tpu_torch.models.tfnet import TFNet
+
+    _needs_card()
+    gen = torch.Generator().manual_seed(0)
+
+    def build():
+        conditioning = Conditioning(cell_type_embedding_dim=8)
+        return TFNet(4, 6, conditioning=conditioning) if model == "tfnet" else DilResNet(4, 2, 16, conditioning)
+
+    net = build().init_weights(gen)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith((".mean", ".bias")):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+            elif name.endswith(".var"):
+                p.copy_(1 + 0.2 * torch.rand(p.shape, generator=gen))
+    card = build().cuda()
+    card.load_state_dict(net.state_dict())
+    x = torch.randn(2, 6, *grid, 4, generator=gen)
+    x = x if model == "tfnet" else x[:, 0]
+    cell_types = torch.randint(0, 6, grid, generator=gen)
+    with torch.no_grad():
+        want = net(x, cell_types)
+        got = card(x.cuda(), cell_types.cuda())
+    assert got.is_cuda and got.shape == want.shape == (2, *grid, 4)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **F32_TOL)
