@@ -16,7 +16,10 @@ Run from the repository root:  python3 chip_smoke.py
    four block shapes, timed beside it and, for the convs, beside cuDNN's
    bf16 pad + conv + bias, and where both convs have one shape, the silu
    conv against the plain one timed in turns; the kernels again at a shape
-   whose bricks overhang every axis (silu prologue on); one backward.
+   whose bricks overhang every axis (silu prologue on); one backward.  And
+   what the conv's clamped addressing saves: a standalone replicate pad at
+   the down_0 input (its bytes' bound, ``F.pad(mode="replicate")`` timed),
+   the ``pad_flatten`` entry of ``conv3x3x3_stats``.
 3b. flash_attention against its plain version at the 2-level bottleneck's
    shape (8, 4, 6912, 32), as the U-Net's strided qkv views, in bf16 and
    f32, and at a ragged (2, 2, 2100, 16), bf16 held to the output's scale
@@ -97,6 +100,26 @@ Run from the repository root:  python3 chip_smoke.py
    baselines' paths, and each baseline's f32 forward on the card against
    the CPU.  Prints one ``trainer`` JSON line (ms per step, validation and
    checkpoint seconds, peak memory, launches).
+6d. Checkpoint evaluation, in 6c's directory on its checkpoints: the
+   port's entry points (``generative_turbulence_tpu_torch/scripts``) through
+   their ``main`` on the card.  ``eval_ckpt`` on the paper run's best
+   checkpoint at DDIM-50 into a ``.npyd`` store (checked: 4 engaged blocks x
+   50 launches per chain kernel per val batch, no flash_attention or
+   conv3d_3x3, finite metrics); ``sample_metrics`` on that store (equal to
+   eval_ckpt's); the import round trip: the EMA weights under turbdiff's
+   keys in a Lightning-style ``turbdiff.ckpt`` (hyper-parameters from the
+   config, ``model.betas``, the variables as an enum pickled as
+   ``turbdiff.data.ofles.Variable``), ``import_checkpoint --trust-pickle``
+   (checked: every tensor bit-equal, max |dbetas| = 0, DDIM-10 samples of
+   the imported and the source checkpoint bit-equal with the same draws);
+   ``evaluate_runtime`` (DDIM-50, 3 repeats: ``sample_time`` and samples
+   per minute); ``evaluate_with_precision`` (DDIM-10; finite, the TF32
+   switches as they were set before it: matmul on, cuDNN off); ``sampler_sweep`` over DDIM-10 bf16 and f32 with
+   any import of h5py made to fail (finite records); ``evaluate_from_initial``
+   on 6c's DilResNet run (4 steps, no launch); ``evaluate_dataset`` (the
+   floor's ``floor/tke``).  Prints one ``checkpoint_eval`` JSON line first
+   among the result lines (seconds, peak memory and launches of each step,
+   the values).
 7. Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
    Every kernel's entry has its time, its bound (``bound_ms``: the larger of
    its bytes over the memory rate and its operations over the peak rate of
@@ -104,8 +127,9 @@ Run from the repository root:  python3 chip_smoke.py
    plain version's time, the library call's (``library_ms``, or null where
    no one torch call computes the same function) and its launches on each
    main path (``launches_by_path``: per sampler run, per train step on
-   the train paths, per ``eval_step`` on the eval paths, and per Trainer
-   step and validation on the Trainer's).
+   the train paths, per ``eval_step`` on the eval paths, per Trainer step
+   and validation on the Trainer's, and per val batch of ``eval_ckpt`` and
+   per entry point of phase 6d).
 
 Any failure exits non-zero before the last line.
 """
@@ -124,6 +148,7 @@ import tempfile
 import time
 import warnings
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 PALLAS = "generative_turbulence_tpu/ops/pallas_kernels.py"
@@ -441,6 +466,28 @@ def single_kernel_rows(torch, ck, gen, block, B, X, Y, Z, C, F, timed=True):
     return rows
 
 
+def pad_flatten_row(torch, gen) -> dict:
+    """``_pad_flatten`` (the replicate pad by 1 of a conv's input) has no
+    launch in the port: the conv kernel's clamped halo addressing is the
+    pad.  What a standalone pad would cost at the ``u_net.down_0`` input
+    (batch 8, bf16): its bytes over the memory rate (the input read once,
+    the padded tensor written once) and torch's replicate pad."""
+    import torch.nn.functional as F
+
+    _, X, Y, Z, C, _ = ENGAGED_BLOCKS[0]
+    x = torch.randn(BATCH, C, X, Y, Z, generator=gen).to("cuda", torch.bfloat16)
+    padded = BATCH * C * (X + 2) * (Y + 2) * (Z + 2)
+    got = F.pad(x, (1,) * 6, mode="replicate")
+    check(tuple(got.shape) == (BATCH, C, X + 2, Y + 2, Z + 2) and torch.equal(got[:, :, 1:-1, 1:-1, 1:-1], x),
+          "replicate pad")
+    row = {"shape": [BATCH, X, Y, Z, C], "dtype": "bfloat16", **bound(2 * (x.numel() + padded)),
+           "library": "torch.nn.functional.pad(mode='replicate')",
+           "library_ms": cuda_ms(torch, lambda: F.pad(x, (1,) * 6, mode="replicate"), 10)}
+    log(f"[3] _pad_flatten at the down_0 input {row['shape']} bf16 (no launch of its own in the port): "
+        f"a standalone pad's bound {row['bound_ms']!r} ms, F.pad(mode='replicate') {row['library_ms']!r} ms")
+    return row
+
+
 def kernel_phase(torch, ck):
     gen = torch.Generator().manual_seed(0)
     log("[3] fused block: kernel chain vs reference_double_conv (bf16); second run bit-equal")
@@ -501,6 +548,7 @@ def kernel_phase(torch, ck):
         # The top-level numbers of each entry are those at down_0.
         for entry in kernels.values():
             entry.update({k: v for k, v in entry["blocks"][0].items() if k != "block"})
+        kernels["conv3x3x3_stats"]["pad_flatten"] = pad_flatten_row(torch, gen)
         kernels = list(kernels.values())
 
     log("[3] backward (autograd of the plain chain) at a small shape")
@@ -1668,6 +1716,225 @@ def trainer_phase(torch, ck, root: Path) -> tuple:
     return launches, rows
 
 
+# Phase 6d, checkpoint evaluation: the port's entry points of
+# generative_turbulence_tpu_torch/scripts on the checkpoints phase 6c's runs
+# wrote, at full width (the paper's 4-level model, dim 32, val batch 8).
+CKPT_EVAL_DDIM_STEPS = 50  # eval_ckpt and evaluate_runtime (the serving setting)
+CKPT_EVAL_SHORT_STEPS = 10  # the import round trip, the precisions, the sweep
+RUNTIME_REPEATS = 3
+FROM_INITIAL_STEPS, FROM_INITIAL_BLOCK = 4, 8  # the cut of 6c's DilResNet validation
+SWEEP_CONFIGS = [
+    {"name": f"ddim{CKPT_EVAL_SHORT_STEPS}-bf16", "overrides": [f"model.ddim_steps={CKPT_EVAL_SHORT_STEPS}"]},
+    {"name": f"ddim{CKPT_EVAL_SHORT_STEPS}-f32",
+     "overrides": [f"model.ddim_steps={CKPT_EVAL_SHORT_STEPS}", "model.compute_dtype=float32"]},
+]
+
+
+def turbdiff_checkpoint(torch, ckpt_dir: Path, path: Path) -> dict:
+    """A Lightning-style ``turbdiff.ckpt`` at ``path`` of the weights a port
+    checkpoint samples with (its EMA where it has one): the ``state_dict``
+    under the reference's keys (``to_reference_state_dict``), its
+    ``model.betas`` and ``hyper_parameters`` from the embedded config, the
+    variables as members of an enum pickled as the reference's
+    ``turbdiff.data.ofles.Variable``, so the import needs ``--trust-pickle``
+    and no reference source.  Returns the weights written (port names)."""
+    import enum
+    import types
+
+    from generative_turbulence_tpu_torch.diffusion.schedules import beta_schedule
+    from generative_turbulence_tpu_torch.scripts.import_checkpoint import HPARAM_MAP
+    from generative_turbulence_tpu_torch.toolchain.import_ckpt import to_reference_state_dict
+    from generative_turbulence_tpu_torch.training.checkpoint import CheckpointManager
+    from generative_turbulence_tpu_torch.training.config import Config
+
+    mgr = CheckpointManager(ckpt_dir)
+    mc = Config.from_json(mgr.config_json).model
+    state = mgr.restore("best", map_location="cpu")
+    weights = state["ema"] if state["ema"] is not None else state["net"]
+    state_dict = to_reference_state_dict(weights, mc.u_net_levels)
+    state_dict["model.betas"] = torch.from_numpy(beta_schedule(mc.beta_schedule, mc.timesteps))
+    variable = enum.Enum("Variable", {name.strip().upper(): name.strip() for name in mc.variables.split(",")},
+                         module="turbdiff.data.ofles")
+    hparams = {ref: getattr(mc, ours) for ref, ours in HPARAM_MAP.items()}
+    hparams["variables"] = tuple(variable)
+    modules = {name: types.ModuleType(name) for name in ("turbdiff", "turbdiff.data", "turbdiff.data.ofles")}
+    modules["turbdiff.data.ofles"].Variable = variable
+    with mock.patch.dict(sys.modules, modules):
+        torch.save({"state_dict": state_dict, "hyper_parameters": hparams}, path)
+    return weights
+
+
+def checkpoint_eval_phase(torch, ck, root: Path, smi: str) -> tuple:
+    """Phase 6d: eval_ckpt, sample_metrics, the import round trip,
+    evaluate_runtime, evaluate_with_precision, sampler_sweep,
+    evaluate_from_initial and evaluate_dataset through their ``main`` on the
+    card.  Returns the launches of each step that launches and the
+    ``checkpoint_eval`` JSON row."""
+    import gc
+    import io
+
+    import numpy as np
+
+    from generative_turbulence_tpu_torch.data.schema import read_metadata
+    from generative_turbulence_tpu_torch.data.variables import Variable
+    from generative_turbulence_tpu_torch.eval.sample_store import SampleStore
+    from generative_turbulence_tpu_torch.scripts import (
+        eval_ckpt, evaluate_dataset, evaluate_from_initial, evaluate_runtime, evaluate_with_precision,
+        import_checkpoint, sample_metrics, sampler_sweep,
+    )
+    from generative_turbulence_tpu_torch.training.checkpoint import CheckpointManager
+
+    ckpt = root / "runs" / "diffusion" / "checkpoints"
+    out = root / "checkpoint_eval"
+    out.mkdir()
+    row = {"ddim_steps": CKPT_EVAL_DDIM_STEPS, "short_ddim_steps": CKPT_EVAL_SHORT_STEPS, "seconds": {},
+           "peak_gib": {}, "launches": {}, "values": {}}
+    log(f"[6d] checkpoint evaluation on {ckpt} (phase 6c's paper run, EMA), DDIM-{CKPT_EVAL_DDIM_STEPS} for "
+        f"eval_ckpt and evaluate_runtime, DDIM-{CKPT_EVAL_SHORT_STEPS} for the rest")
+
+    def step(name: str, main, argv, **kwargs):
+        """``main(argv)`` with its standard output kept (the scripts print
+        their JSON there), timed on the host clock with the card
+        synchronised, its peak memory and its launches."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ck.reset_launch_counts()
+        tic = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            result = main([*map(str, argv), "--device", "cuda"], **kwargs)
+        torch.cuda.synchronize()
+        row["seconds"][name] = time.perf_counter() - tic
+        row["peak_gib"][name] = torch.cuda.max_memory_allocated() / 2**30
+        row["launches"][name] = dict(ck.LAUNCH_COUNTS)
+        log(f"  {name}: {row['seconds'][name]!r} s, peak {row['peak_gib'][name]!r} GiB, launches "
+            f"{row['launches'][name]}")
+        return result
+
+    def finite(values: dict, what: str, keys=None) -> None:
+        bad = {k: v for k, v in values.items() if (keys is None or k in keys) and not math.isfinite(v)}
+        check(not bad and (keys is None or set(keys) <= set(values)), f"{what}: not finite or missing: {bad}")
+
+    def chain_launches(name: str, evaluations: int) -> None:
+        counts = row["launches"][name]
+        want = dict({k: evaluations * len(ENGAGED_BLOCKS) for k in CHAIN_KERNELS}, flash_attention=0, conv3d_3x3=0)
+        check(counts == want, f"{name}: launches {counts}, expected {want}")
+
+    cheap = ("val/tke", "val/max-mean-tke-pos")
+    # 1. eval_ckpt at DDIM-50 into a .npyd store.
+    store_file = out / "samples.npyd"
+    metrics = step("eval_ckpt", eval_ckpt.main, [ckpt, store_file, "--which", "best",
+                                                 f"model.ddim_steps={CKPT_EVAL_DDIM_STEPS}"])
+    store = SampleStore(store_file, (Variable.U, Variable.P))
+    n_samples = sum(store.n_samples(case) for case in store.case_names)
+    n_batches = n_samples // EVAL_BATCH
+    check(n_samples == n_batches * EVAL_BATCH > 0, f"eval_ckpt: {n_samples} samples in the store")
+    chain_launches("eval_ckpt", CKPT_EVAL_DDIM_STEPS * n_batches)
+    finite(metrics, "eval_ckpt", cheap)
+    log(f"    {n_batches} val batch(es) of {EVAL_BATCH}; {CKPT_EVAL_DDIM_STEPS} x {len(ENGAGED_BLOCKS)} launches "
+        f"of each chain kernel per batch (as expected); {json.dumps({k: metrics[k] for k in cheap})}")
+    row["values"]["eval_ckpt"] = metrics
+    row["val_batches"] = n_batches
+
+    # 2. sample_metrics on that store.
+    again = step("sample_metrics", sample_metrics.main, [store_file, root / "val", "--prefix", "val"])
+    rel = max(abs(again[k] - metrics[k]) / max(abs(metrics[k]), 1e-30) for k in metrics)
+    check(again.keys() == metrics.keys() and rel <= 1e-6, f"sample_metrics vs eval_ckpt: {again} vs {metrics}")
+    log(f"    sample_metrics equals eval_ckpt's metrics (largest relative difference {rel!r})")
+    row["values"]["sample_metrics_max_rel_diff"] = rel
+
+    # 3. The import round trip.
+    tic = time.perf_counter()
+    weights = turbdiff_checkpoint(torch, ckpt, out / "turbdiff.ckpt")
+    row["seconds"]["write_turbdiff_ckpt"] = time.perf_counter() - tic
+    imported_dir = out / "imported"
+    # The reference's hyper-parameters do not name the U-Net's depth.
+    levels = json.loads((ckpt / "config.json").read_text())["model"]["u_net_levels"]
+    user = [f"data.root={root}", f"model.u_net_levels={levels}", "data.discard_first_seconds=-1", "data.val_samples=8",
+            "model.compute_dtype=bfloat16", "model.sampler=ddim", f"model.ddim_steps={CKPT_EVAL_SHORT_STEPS}",
+            f"trainer.out_dir={out / 'imported-run'}"]
+    result = step("import_checkpoint", import_checkpoint.main,
+                  [out / "turbdiff.ckpt", imported_dir, "--trust-pickle", *user])
+    restored = CheckpointManager(imported_dir).restore("best", map_location="cpu")["net"]
+    unequal = [k for k in weights if not torch.equal(restored[k], weights[k].cpu())]
+    check(restored.keys() == weights.keys() and not unequal, f"import: {len(unequal)} tensors differ: {unequal[:4]}")
+    check(result["max_abs_betas_diff"] == 0.0, f"import: max |dbetas| = {result['max_abs_betas_diff']}")
+    short = f"model.ddim_steps={CKPT_EVAL_SHORT_STEPS}"
+    step("sample_imported", eval_ckpt.main, [imported_dir, out / "imported.npyd"])
+    step("sample_source", eval_ckpt.main, [ckpt, out / "source.npyd", short])
+    differ = []
+    for case in store.case_names:
+        meta = read_metadata(root / "val" / case / "data.npyd")
+        a, b = (SampleStore(out / f"{n}.npyd", (Variable.U, Variable.P)).load_samples(meta).fields
+                for n in ("imported", "source"))
+        differ += [f"{case}/{v.key}" for v in a if not np.array_equal(a[v], b[v])]
+    check(not differ, f"import: DDIM-{CKPT_EVAL_SHORT_STEPS} samples of the imported and the source checkpoints "
+          f"differ: {differ}")
+    log(f"    import round trip: {len(weights)} tensors bit-equal, max |dbetas| = 0, "
+        f"DDIM-{CKPT_EVAL_SHORT_STEPS} samples bit-equal to the source checkpoint's with the same draws")
+    row["values"]["import_tensors"] = len(weights)
+
+    # 4. evaluate_runtime at DDIM-50.
+    runtime = step("evaluate_runtime", evaluate_runtime.main,
+                   [ckpt, f"model.ddim_steps={CKPT_EVAL_DDIM_STEPS}", "--repeats", RUNTIME_REPEATS])
+    chain_launches("evaluate_runtime", CKPT_EVAL_DDIM_STEPS * (1 + RUNTIME_REPEATS) * len(runtime["per_case"]))
+    sample_time = runtime["sample_time"]
+    row.update(sample_time_s=sample_time, per_case_s=runtime["per_case"],
+               samples_per_min=EVAL_BATCH / sample_time * 60)
+    log(f"    sample_time (DDIM-{CKPT_EVAL_DDIM_STEPS}, batch {EVAL_BATCH}, bf16, min of {RUNTIME_REPEATS}) "
+        f"{sample_time!r} s = {row['samples_per_min']!r} samples/min on {smi}")
+
+    # 5. evaluate_with_precision at DDIM-10, from TF32 switches that no
+    # precision leaves behind (matmul on, cuDNN off), which must hold again after.
+    before = (True, False)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
+    try:
+        precisions = step("evaluate_with_precision", evaluate_with_precision.main, [ckpt, short])
+        switches = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    for precision, values in precisions.items():
+        finite(values, f"evaluate_with_precision {precision}", cheap)
+    check(list(precisions) == ["default", "high", "highest"] and switches == before,
+          f"evaluate_with_precision: {list(precisions)}, TF32 switches {before} before, {switches} afterwards")
+    log(f"    val/tke by precision {json.dumps({p: v['val/tke'] for p, v in precisions.items()})}; "
+        f"TF32 switches (matmul, cudnn) {before} before and afterwards")
+    row["values"]["evaluate_with_precision"] = {p: v["val/tke"] for p, v in precisions.items()}
+
+    # 6. sampler_sweep over two configurations, h5py blocked.
+    (out / "sweep.json").write_text(json.dumps(SWEEP_CONFIGS))
+    with mock.patch.dict(sys.modules, {"h5py": None}):  # any import of h5py fails inside the sweep
+        records = step("sampler_sweep", sampler_sweep.main, [ckpt, "--configs", out / "sweep.json"])
+    for record in records:
+        finite({k: v for k, v in record.items() if k not in ("name", "which")}, f"sampler_sweep {record['name']}",
+               ("val/tke", "fluct-ratio-back", "mean-err-rms"))
+    log(f"    sweep (h5py blocked): {json.dumps(records)}")
+    row["values"]["sampler_sweep"] = records
+
+    # 7. evaluate_from_initial on phase 6c's DilResNet run.
+    from_initial = step("evaluate_from_initial", evaluate_from_initial.main,
+                        [root / "runs" / "dilresnet" / "checkpoints", "--steps", FROM_INITIAL_STEPS,
+                         "--block-size", FROM_INITIAL_BLOCK, "--out", out / "from-initial.npyd"])
+    check(not any(row["launches"]["evaluate_from_initial"].values()),
+          f"evaluate_from_initial: a kernel launched: {row['launches']['evaluate_from_initial']}")
+    finite(from_initial, "evaluate_from_initial", ("from-initial/tke",))
+    log(f"    cut: DilResNet unrolled {FROM_INITIAL_STEPS} steps in a block of {FROM_INITIAL_BLOCK} (6c's "
+        f"validation cut); from-initial/tke {from_initial['from-initial/tke']!r}; no launch")
+    row["values"]["evaluate_from_initial"] = from_initial
+
+    # 8. evaluate_dataset: the metric floor of real frames.
+    floor = step("evaluate_dataset", evaluate_dataset.main, [root, "--samples", EVAL_BATCH])
+    finite(floor, "evaluate_dataset", ("floor/tke",))
+    log(f"    the floor: floor/tke {floor['floor/tke']!r} (real frames) against val/tke {metrics['val/tke']!r} "
+        "(the 2-epoch model)")
+    row["values"]["evaluate_dataset"] = floor
+    launches = {name: row["launches"][name] for name in ("eval_ckpt", "sample_imported", "sample_source",
+                                                         "evaluate_runtime", "evaluate_with_precision",
+                                                         "sampler_sweep")}
+    return launches, row
+
+
 def main() -> int:
     if not (ROOT / "generative_turbulence_tpu_torch").is_dir():
         log("error: run from a checkout of the repository (generative_turbulence_tpu_torch/ missing)")
@@ -1717,20 +1984,26 @@ def main() -> int:
             trainer_launches, runs = trainer_phase(torch, ck, Path(tmp))
             trainer_rows.update(runs, phase_s=time.perf_counter() - tic)
             log(f"  phase 6c took {trainer_rows['phase_s']!r} s")
+            tic = time.perf_counter()
+            ckpt_launches, ckpt_rows = checkpoint_eval_phase(torch, ck, Path(tmp), smi)
+            ckpt_rows["phase_s"] = time.perf_counter() - tic
+            log(f"  phase 6d took {ckpt_rows['phase_s']!r} s")
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1
     timings.update(timings2)
     profiles += [train_profile4, train_profile2]
     # Launches on the main paths (the 4-level and the 2-level sampler runs,
-    # train steps, eval steps and the Trainer's runs), each counted from 0
-    # just before the path runs; the train paths per step, the eval paths per
-    # eval_step, the Trainer per train step and per validation.
+    # train steps, eval steps, the Trainer's runs and the checkpoint
+    # evaluation's entry points), each counted from 0 just before the path
+    # runs; the train paths per step, the eval paths per eval_step, the
+    # Trainer per train step and per validation, eval_ckpt per val batch.
     diffusion = trainer_rows["diffusion"]
     for entry in kernels:
         name = entry["name"]
         entry["launches"] = (launches4[name] + launches2[name] + train_launches4[name] + train_launches2[name]
-                             + sum(counts[name] for counts in eval_launches.values()) + trainer_launches[name])
+                             + sum(counts[name] for counts in eval_launches.values()) + trainer_launches[name]
+                             + sum(counts[name] for counts in ckpt_launches.values()))
         entry["launches_by_path"] = {
             "4_levels": launches4[name], "2_levels": launches2[name],
             "train_4_levels": train4["launches_per_step"][name],
@@ -1740,8 +2013,11 @@ def main() -> int:
             "trainer_diffusion_per_validation": diffusion["launches_per_validation"][0][name],
             "trainer_tfnet": trainer_rows["tfnet"]["launches"][name],
             "trainer_dilresnet": trainer_rows["dilresnet"]["launches"][name],
+            "checkpoint_eval_per_val_batch": ckpt_launches["eval_ckpt"][name] / ckpt_rows["val_batches"],
+            "checkpoint_eval": {step: counts[name] for step, counts in ckpt_launches.items()},
         }
     log(f"[7] card: {smi}")
+    print(json.dumps({"checkpoint_eval": ckpt_rows, "card": smi}))
     print(json.dumps({"trainer": trainer_rows, "card": smi}))
     print(json.dumps({"eval_path": eval_rows, "card": smi}))
     print(json.dumps({"blocks": block_rows, "main_path": timings, "profiles": profiles,

@@ -14,6 +14,9 @@ with one schema, chosen by the store's file name:
   ``"<case_name>/data": {"n_samples": n}``.  A ``<var>.npy`` (a converted
   ``.h5`` store) is the chunk at 0 where no ``<var>-0.npy`` is.
 
+An ``.h5`` store where ``h5py`` does not import (the card's machine) is
+refused when the store is made, with a message that names ``.npyd``.
+
 ``reset()`` sets every ``n_samples`` to 0 without deleting data: later
 samples overwrite it.  The first ``n_samples`` samples are the store's; the
 ``.npyd`` reader follows the chunks from 0, each starting where the last
@@ -46,6 +49,12 @@ class SampleStore:
         self.samples_file = samples_file
         self.variables = tuple(variables)
         self.npyd = is_npyd(samples_file)
+        if not self.npyd:
+            try:
+                import h5py  # noqa: F401
+            except ImportError as e:
+                raise ModuleNotFoundError(f"{samples_file}: an .h5 sample store needs h5py, which is not "
+                                          "installed; name a .npyd store instead", name="h5py") from e
         self.samples_file.parent.mkdir(parents=True, exist_ok=True)
 
     def add_samples(self, cells: np.ndarray, metadata: CaseMetadata) -> None:
@@ -95,7 +104,8 @@ class SampleStore:
     @property
     def case_names(self) -> List[str]:
         if self.npyd:
-            return sorted(key[: -len("/data")] for key in read_attrs(self.samples_file))
+            # A converted .h5 store also lists its case groups' (empty) attributes.
+            return sorted(key[: -len("/data")] for key in read_attrs(self.samples_file) if key.endswith("/data"))
         if not self.samples_file.is_file():
             return []
         import h5py
@@ -129,7 +139,8 @@ class SampleStore:
         if self.npyd:
             attrs = read_attrs(self.samples_file)
             if attrs:
-                write_attrs(self.samples_file, {key: {"n_samples": 0} for key in attrs})
+                write_attrs(self.samples_file, {key: {"n_samples": 0} if key.endswith("/data") else value
+                                                for key, value in attrs.items()})
             return
         if not self.samples_file.is_file():
             return

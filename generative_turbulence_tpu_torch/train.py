@@ -47,6 +47,17 @@ def set_matmul_precision(precision: str) -> None:
     torch.backends.cudnn.allow_tf32 = _TF32[precision]
 
 
+def resolve_device(name: str):
+    """The torch device of a run; a CUDA device where there is none stops
+    the run rather than let it fall back to the CPU."""
+    import torch
+
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: torch.cuda.is_available() is False (pass --device cpu to run on the CPU)")
+    return device
+
+
 @print_exceptions
 def main(argv=None):
     import torch
@@ -58,10 +69,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--device", default="cuda", help="torch device of the run (default: cuda)")
     parser.add_argument("overrides", nargs="*", help="key=value config overrides")
-    args = parser.parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: torch.cuda.is_available() is False (pass --device cpu to train on the CPU)")
+    args = parser.parse_intermixed_args(argv)
+    device = resolve_device(args.device)
 
     try:
         config = parse_cli_overrides(args.overrides).resolved()

@@ -587,3 +587,99 @@ def test_baseline_forward_on_gpu(model, grid):
         got = card(x.cuda(), cell_types.cuda())
     assert got.is_cuda and got.shape == want.shape == (2, *grid, 4)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **F32_TOL)
+
+
+# ---- checkpoint evaluation on the card ---------------------------------------
+# eval_ckpt and import_checkpoint (python -m generative_turbulence_tpu_torch.
+# scripts.*) on a tiny checkpoint, on the card against the CPU.
+
+EVAL_CKPT_OVERRIDES = ["model=diffusion", "model.dim=8", "model.u_net_levels=2", "model.timesteps=20",
+                       "model.sampler=ddim", "model.ddim_steps=10", "data.discard_first_seconds=-1",
+                       "data.val_samples=4", "data.eval_batch_size=4", "model.batch_size=4",
+                       "trainer.render_plots=false"]
+
+
+@pytest.fixture(scope="module")
+def tiny_checkpoint(npyd_root, tmp_path_factory):
+    """A port checkpoint directory of a seeded 2-level net (dim 8, f32) on
+    the .npyd dataset, with its source state."""
+    from generative_turbulence_tpu_torch.training.checkpoint import CheckpointManager
+    from generative_turbulence_tpu_torch.training.config import parse_cli_overrides
+    from generative_turbulence_tpu_torch.training.factory import instantiate_data_and_task
+
+    out = tmp_path_factory.mktemp("ckpt")
+    config = parse_cli_overrides(EVAL_CKPT_OVERRIDES + [f"data.root={npyd_root}", f"trainer.out_dir={out}"])
+    config = config.resolved()
+    _, task = instantiate_data_and_task(config, "cpu")
+    task.init_weights(torch.Generator().manual_seed(0))
+    mgr = CheckpointManager(out / "checkpoints", config.to_json())
+    mgr.save_last(task.state_dict(), 0)
+    mgr.save_best(task.state_dict(), 0, 1.0)
+    return out / "checkpoints", {k: v.clone() for k, v in task.net.state_dict().items()}
+
+
+def _eval_ckpt(ckpt_dir, store, device, *overrides):
+    from generative_turbulence_tpu_torch.scripts import eval_ckpt
+    from generative_turbulence_tpu_torch.training.loop import key_seed
+
+    noise = lambda kind, *key: _HostNoise(key_seed(0, kind, *key), device)  # noqa: E731
+    return eval_ckpt.main([str(ckpt_dir), str(store), *overrides, "--device", device], noise_factory=noise)
+
+
+def _stored(store, npyd_root):
+    from generative_turbulence_tpu_torch.data.schema import read_metadata
+    from generative_turbulence_tpu_torch.data.variables import Variable
+    from generative_turbulence_tpu_torch.eval.sample_store import SampleStore
+
+    meta = read_metadata(npyd_root / "val" / "case-val-00" / "data.npyd")
+    return SampleStore(store, (Variable.U, Variable.P)).load_samples(meta).fields
+
+
+@pytest.mark.gpu
+def test_eval_ckpt_on_gpu(tiny_checkpoint, npyd_root, tmp_path):
+    """eval_ckpt (DDIM-10, f32) on the card and on the CPU with the same
+    draws: the stored samples at rtol 1e-3 / atol 1e-4 of their scale, the
+    metrics at rtol 5e-3."""
+    _needs_card()
+    ckpt_dir, _ = tiny_checkpoint
+    got = _eval_ckpt(ckpt_dir, tmp_path / "card.npyd", "cuda")
+    want = _eval_ckpt(ckpt_dir, tmp_path / "cpu.npyd", "cpu")
+    assert sorted(got) == sorted(want) and "val/tke" in got
+    for name in want:
+        assert np.isfinite(got[name])
+        np.testing.assert_allclose(got[name], want[name], rtol=5e-3, err_msg=name)
+    card, cpu = _stored(tmp_path / "card.npyd", npyd_root), _stored(tmp_path / "cpu.npyd", npyd_root)
+    for v in cpu:
+        assert card[v].shape == cpu[v].shape == (4, *cpu[v].shape[1:])
+        scale = np.abs(cpu[v]).max()
+        np.testing.assert_allclose(card[v] / scale, cpu[v] / scale, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_import_checkpoint_round_trip_on_gpu(tiny_checkpoint, npyd_root, tmp_path):
+    """The net under the reference's keys as a Lightning-style .ckpt,
+    imported on the card: every tensor bit-equal to its source, the schedule
+    exact, and eval_ckpt on the card bit-equal to the source checkpoint's."""
+    from generative_turbulence_tpu_torch.diffusion.schedules import beta_schedule
+    from generative_turbulence_tpu_torch.scripts import import_checkpoint
+    from generative_turbulence_tpu_torch.toolchain.import_ckpt import to_reference_state_dict
+    from generative_turbulence_tpu_torch.training.checkpoint import CheckpointManager
+
+    _needs_card()
+    ckpt_dir, source = tiny_checkpoint
+    state_dict = to_reference_state_dict(source, 2)
+    state_dict["model.betas"] = torch.from_numpy(beta_schedule("log-snr-linear", 20))
+    torch.save({"state_dict": state_dict, "hyper_parameters": {"dim": 8, "timesteps": 20, "variables": ("U", "P")}},
+               tmp_path / "turbdiff.ckpt")
+    out = tmp_path / "imported"
+    result = import_checkpoint.main([str(tmp_path / "turbdiff.ckpt"), str(out), f"data.root={npyd_root}",
+                                     *EVAL_CKPT_OVERRIDES[2:], f"trainer.out_dir={tmp_path}", "--device", "cuda"])
+    assert result["max_abs_betas_diff"] == 0.0
+    restored = CheckpointManager(out).restore("best", map_location="cpu")["net"]
+    assert restored.keys() == source.keys() and all(torch.equal(restored[k], source[k]) for k in source)
+    got = _eval_ckpt(out, tmp_path / "imported.npyd", "cuda")
+    want = _eval_ckpt(ckpt_dir, tmp_path / "source.npyd", "cuda")
+    assert got == want
+    imported, from_source = _stored(tmp_path / "imported.npyd", npyd_root), _stored(tmp_path / "source.npyd", npyd_root)
+    for v in from_source:
+        np.testing.assert_array_equal(imported[v], from_source[v])
