@@ -120,6 +120,26 @@ Run from the repository root:  python3 chip_smoke.py
    floor's ``floor/tke``).  Prints one ``checkpoint_eval`` JSON line first
    among the result lines (seconds, peak memory and launches of each step,
    the values).
+6e. Data parallel, on 6c's dataset with its val case copied to a second:
+   the paper's run (``trainer.max_steps=4``, one DDIM-10 validation,
+   ``data.shard_eval=true``) through the training entry point's ``main`` in
+   processes of their own (``chip_smoke.py --rank-worker``): twice in one
+   process and once as one NCCL rank under ``torch.distributed.run`` side by
+   side on the card, then two ranks sharing the card over gloo under
+   ``torch.distributed.run``.  The card's compute mode is checked first
+   (exclusive-process fails the phase).  Checks: the backends, worlds and
+   devices; 7 launches per chain kernel per step on every rank; the gloo
+   ranks' first-step all-reduced gradients against the single run's
+   (cosine >= 0.999, worst leaf's rel L2 <= 3e-2 or 3x the two single runs'
+   difference; x 1.1 refused), their losses (the bf16 tolerance), the merged
+   ``val/tke`` (rel 1e-4), each rank's store holding its own case, rank 1
+   writing no run files, the 2-rank checkpoint restored in one process; the
+   NCCL rank's parameters within 3x the single runs' spread, its first loss
+   equal to theirs where theirs agree, the rest at the bf16 tolerance.
+   Prints one ``distributed`` JSON line first among the result lines (per
+   rank: backend, device, step ms, all-reduce ms of the gradients' bytes,
+   peak memory; ``shared_card``: two ranks on one card are no scaling
+   figure).
 7. Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
    Every kernel's entry has its time, its bound (``bound_ms``: the larger of
    its bytes over the memory rate and its operations over the peak rate of
@@ -129,9 +149,14 @@ Run from the repository root:  python3 chip_smoke.py
    main path (``launches_by_path``: per sampler run, per train step on
    the train paths, per ``eval_step`` on the eval paths, per Trainer step
    and validation on the Trainer's, and per val batch of ``eval_ckpt`` and
-   per entry point of phase 6d).
+   per entry point of phase 6d, per rank per step of phase 6e).
 
 Any failure exits non-zero before the last line.
+
+``python3 chip_smoke.py --multi-card``, on a machine with several cards,
+runs phase 6e's comparison at world = the card count over NCCL (batch 2 x
+cards, one card per rank) against one process and prints one
+``multi_card`` JSON line.
 """
 
 from __future__ import annotations
@@ -140,7 +165,10 @@ import contextlib
 import functools
 import json
 import math
+import os
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -1935,6 +1963,363 @@ def checkpoint_eval_phase(torch, ck, root: Path, smi: str) -> tuple:
     return launches, row
 
 
+# Phase 6e, data parallel: phase 6c's paper run through the training entry
+# point (generative_turbulence_tpu_torch.train.main) in processes of their
+# own, on 6c's dataset with its val case copied to a second one.  Two
+# non-distributed runs (side by side: their spread), two ranks sharing the
+# card over gloo under torch.distributed.run, then one rank over NCCL.
+DP_STEPS = 4
+DP_RUN = TRAINER_RUNS["diffusion"] + TRAINER_CUTS + [
+    f"trainer.max_steps={DP_STEPS}", "trainer.max_epochs=1", "trainer.log_every_n_steps=1", "data.shard_eval=true"]
+DP_VAL_CASES = ("case-val-00", "case-val-01")
+DP_LOSS_TOL = dict(rel=0.06, abs=0.03)  # the bf16 loss tolerance (tests/test_torch_train.py)
+# The merged val/tke against the single run's: 2.2e-6 apart in the first card
+# run (H100 80GB HBM3, 700 W), two single runs 8.5e-7 apart.
+DP_TKE_RTOL = 1e-4
+DP_TIMEOUT_S = 300
+DP_ALLREDUCE_REPS = 5
+
+
+def rank_worker(out_dir: Path, overrides: list) -> int:
+    """``python chip_smoke.py --rank-worker <out_dir> <override> ...``: one
+    rank of phase 6e (or its single process).  Runs the training entry
+    point's ``main`` with ``trainer.out_dir=<out_dir>/rank<r>`` and the
+    samples in ``<out_dir>/samples``, measuring each train step (CUDA
+    events, launches, loss) and keeping the first step's all-reduced
+    gradients (``grads.pt``) and the final parameters (``params.pt``) on
+    rank 0; then times an all-reduce of the gradients' bytes
+    (``dp/all_reduce``) and writes ``<out_dir>/rank<r>.json``."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import record_function
+
+    from generative_turbulence_tpu_torch import train
+    from generative_turbulence_tpu_torch.ops import cuda_kernels as ck
+    from generative_turbulence_tpu_torch.parallel.distributed import process_rank_and_world
+    from generative_turbulence_tpu_torch.training.diffusion_task import DiffusionTask
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = int(os.environ.get("RANK", "0"))
+    steps = {"events": [], "launches": [], "losses": []}
+    tasks = []
+    training_step = DiffusionTask.training_step
+
+    def measured_step(task, cells, grid, noise):
+        if not tasks:
+            tasks.append(task)
+        before = dict(ck.LAUNCH_COUNTS)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = training_step(task, cells, grid, noise)
+        end.record()
+        steps["events"].append((start, end))
+        steps["launches"].append({k: v - before[k] for k, v in ck.LAUNCH_COUNTS.items()})
+        steps["losses"].append(out["train/loss"])
+        if len(steps["events"]) == 1 and rank == 0:
+            torch.save({n: p.grad.float().cpu() for n, p in task.net.named_parameters()}, out_dir / "grads.pt")
+        return out
+
+    ck.reset_launch_counts()
+    tic = time.perf_counter()
+    with patched(DiffusionTask, "training_step", measured_step):
+        score = train.main([*overrides, f"trainer.out_dir={out_dir / f'rank{rank}'}",
+                            f"trainer.samples_root={out_dir / 'samples'}"])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - tic
+    task = tasks[0]
+    _, world = process_rank_and_world()
+    row = {"rank": rank, "world": world, "backend": dist.get_backend() if dist.is_initialized() else None,
+           "device": str(task.device), "card": torch.cuda.get_device_name(task.device),
+           "train_net": type(task.train_net).__name__, "fit_s": fit_s,
+           "step_ms": [a.elapsed_time(b) for a, b in steps["events"]],
+           "launches_per_step": steps["launches"], "launches": dict(ck.LAUNCH_COUNTS),
+           "losses": [float(v) for v in steps["losses"]], "monitor": score,
+           "peak_gib": torch.cuda.max_memory_allocated(task.device) / 2**30, "n_params": task.n_params(),
+           "store_file": task.sample_stores["val"].samples_file.name,
+           "store_cases": sorted(task.sample_stores["val"].case_names)}
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in task.net.state_dict().items()}, out_dir / "params.pt")
+    if dist.is_initialized():
+        grads = torch.zeros(task.n_params(), device=task.device)
+        dist.all_reduce(grads)
+        times = []
+        for _ in range(DP_ALLREDUCE_REPS):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            with record_function("dp/all_reduce"):
+                dist.all_reduce(grads)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - tic) * 1e3)
+        row["allreduce_ms"] = times
+        dist.destroy_process_group()
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(row))
+    return 0
+
+
+def compute_mode() -> str:
+    proc = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60)
+    return proc.stdout.strip() or f"unknown ({proc.stderr.strip()})"
+
+
+def start_runs(root: Path, runs: dict, extra=()) -> dict:
+    """Start each run (name -> (launcher arguments, environment)) of the
+    rank worker on ``DP_RUN`` and ``extra`` in a session of its own; returns
+    name -> (process, log)."""
+    started = {}
+    for name, (launcher, env) in runs.items():
+        out = root / "dp" / name
+        out.mkdir(parents=True)
+        log_file = open(out / "log.txt", "w+")
+        cmd = [sys.executable, *launcher, str(ROOT / "chip_smoke.py"), "--rank-worker", str(out), *DP_RUN,
+               f"data.root={root}", *extra]
+        started[name] = (subprocess.Popen(cmd, cwd=ROOT, env={**os.environ, **env}, stdout=log_file,
+                                          stderr=subprocess.STDOUT, start_new_session=True), log_file)
+    return started
+
+
+def finish_runs(started: dict) -> dict:
+    """Wait for the runs (each within ``DP_TIMEOUT_S``), ending every
+    process of a run's session that outlives it; a run that fails fails the
+    phase.  Returns name -> its output directory."""
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    failed = []
+    try:
+        for name, (proc, log_file) in started.items():
+            try:
+                code = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                code = "timeout"
+            if code != 0:
+                log_file.seek(0)
+                failed.append(f"{name} exited {code}:\n{log_file.read()[-6000:]}")
+    finally:
+        for proc, log_file in started.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            log_file.close()
+    check(not failed, "\n".join(failed))
+    return {name: Path(log_file.name).parent for name, (_, log_file) in started.items()}
+
+
+def rank_rows(out: Path, world: int) -> list:
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def param_spread(torch, a: Path, b: Path) -> float:
+    """The largest relative L2 difference of a parameter leaf between the
+    final parameters of two runs."""
+    a, b = (torch.load(out / "params.pt") for out in (a, b))
+    return max(float(torch.linalg.vector_norm(a[k].float() - b[k].float())
+                     / torch.linalg.vector_norm(b[k].float()).clamp_min(1e-30)) for k in b)
+
+
+def check_rank_steps(rows: list) -> None:
+    """``DP_STEPS`` steps in each run and rank, each launching every chain
+    kernel ``TRAIN_CHAIN_LAUNCHES`` times and no other kernel."""
+    for row in rows:
+        check(len(row["losses"]) == DP_STEPS, f"rank {row['rank']}: {len(row['losses'])} steps, not {DP_STEPS}")
+        for counts in row["launches_per_step"]:
+            for name in CHAIN_KERNELS:
+                check(counts[name] == TRAIN_CHAIN_LAUNCHES,
+                      f"{row['backend']} rank {row['rank']}: {name} launched {counts[name]} times in a step, "
+                      f"expected {TRAIN_CHAIN_LAUNCHES}")
+            check(counts["flash_attention"] == 0 and counts["conv3d_3x3"] == 0, f"launches in a step: {counts}")
+
+
+def hold_ranks(torch, single: dict, single_out: Path, ranks: list, ranks_out: Path, bound: float, label: str) -> dict:
+    """The ranks of a data-parallel run against the single run: the ranks'
+    all-reduced losses and merged ``val/tke`` equal; each loss within the
+    bf16 loss tolerance of the single run's; the first step's all-reduced
+    gradients (cosine >= ``MIN_GRAD_COS``, worst leaf's rel L2 <= ``bound``,
+    the gradients x 1.1 refused); ``val/tke`` within ``DP_TKE_RTOL``."""
+    r0 = ranks[0]
+    check(all(r["losses"] == r0["losses"] and r["monitor"] == r0["monitor"] for r in ranks),
+          f"{label}: the ranks' losses or val/tke differ: {[(r['losses'], r['monitor']) for r in ranks]}")
+    loss_diff = [abs(x - y) / abs(y) for x, y in zip(r0["losses"], single["losses"])]
+    check(all(math.isclose(x, y, rel_tol=DP_LOSS_TOL["rel"], abs_tol=DP_LOSS_TOL["abs"])
+              for x, y in zip(r0["losses"], single["losses"])),
+          f"{label}: losses {r0['losses']} vs 1 process {single['losses']}")
+    want, got = torch.load(single_out / "grads.pt"), torch.load(ranks_out / "grads.pt")
+    names = list(want)
+    want, got = ([tensors[k].cuda() for k in names] for tensors in (want, got))
+    held = grad_agreement(torch, got, want, names)
+    scaled = grad_agreement(torch, [1.1 * g for g in got], want, names)
+    tke_rel = abs(r0["monitor"] - single["monitor"]) / abs(single["monitor"])
+    log(f"  {label} vs 1 process: losses {r0['losses']!r} vs {single['losses']!r} (rel diff {loss_diff!r}); "
+        f"first step's all-reduced gradients cos {held['cos']!r}, worst leaf {held['worst_leaf']} rel_l2 "
+        f"{held['worst_rel_l2']!r} (bound {bound!r}); x 1.1: {scaled['worst_rel_l2']!r}; merged val/tke "
+        f"{r0['monitor']!r} vs {single['monitor']!r}: rel diff {tke_rel!r} (tolerance {DP_TKE_RTOL})")
+    check(held["cos"] >= MIN_GRAD_COS, f"{label}: gradient cosine {held['cos']} < {MIN_GRAD_COS}")
+    check(held["worst_rel_l2"] <= bound,
+          f"{label}: {held['worst_leaf']} gradient rel_l2 {held['worst_rel_l2']} > {bound}")
+    check(scaled["worst_rel_l2"] > bound, f"{label}: the gradients x 1.1 pass the bound {bound}")
+    check(tke_rel <= DP_TKE_RTOL, f"{label}: val/tke {r0['monitor']} vs 1 process {single['monitor']}")
+    return {"gradients": {**held, "bound": bound, "x1.1_worst_rel_l2": scaled["worst_rel_l2"]},
+            "loss_rel_diff": loss_diff, "tke_rel_diff": tke_rel}
+
+
+def data_parallel_phase(torch, ck, root: Path, smi: str) -> tuple:
+    """Phase 6e.  Returns the ranks' launches (name -> per rank) and the
+    ``distributed`` JSON row."""
+    from generative_turbulence_tpu_torch.data.schema import FieldStats
+    from generative_turbulence_tpu_torch.training.checkpoint import CheckpointManager
+    from generative_turbulence_tpu_torch.training.config import parse_cli_overrides
+    from generative_turbulence_tpu_torch.training.diffusion_task import DiffusionTask
+
+    tic = time.perf_counter()
+    mode = compute_mode()
+    log(f"[6e] data parallel through the entry point (trainer.max_steps={DP_STEPS}, data.shard_eval=true); "
+        f"compute mode {mode}")
+    check(mode.lower() not in ("exclusive_process", "prohibited"),
+          f"the card's compute mode is {mode}: two processes cannot share it")
+    shutil.copytree(root / "val" / DP_VAL_CASES[0], root / "val" / DP_VAL_CASES[1])
+    torchrun = ["-m", "torch.distributed.run", "--standalone"]
+    dist_env = {"GT_DISTRIBUTED": "1"}
+    # The single runs and the NCCL rank side by side (their steps share the
+    # card), then the two gloo ranks alone (their step times and all-reduce).
+    outs = finish_runs(start_runs(root, {"single_a": ([], {}), "single_b": ([], {}),
+                                         "nccl_1": ([*torchrun, "--nproc-per-node", "1"], dist_env)}))
+    outs.update(finish_runs(start_runs(root, {"gloo_2": ([*torchrun, "--nproc-per-node", "2"], dist_env)})))
+    (a,), (b,), (g0, g1), (n0,) = (rank_rows(outs[name], w) for name, w in
+                                   (("single_a", 1), ("single_b", 1), ("gloo_2", 2), ("nccl_1", 1)))
+
+    check(a["backend"] is None and b["backend"] is None and a["train_net"] == "DenoisingModel",
+          f"the single runs are in a process group: {a['backend']}, {b['backend']}")
+    check(g0["backend"] == g1["backend"] == "gloo" and g0["world"] == g1["world"] == 2
+          and g0["device"] == g1["device"] == "cuda:0" and g0["train_net"] == "DistributedDataParallel",
+          f"gloo run: {[(r['backend'], r['world'], r['device'], r['train_net']) for r in (g0, g1)]}")
+    check(n0["backend"] == "nccl" and n0["world"] == 1 and n0["train_net"] == "DistributedDataParallel",
+          f"nccl run: {n0['backend']}, world {n0['world']}, {n0['train_net']}")
+    check_rank_steps([a, b, g0, g1, n0])
+    log(f"  every run and rank: {TRAIN_CHAIN_LAUNCHES} launches per chain kernel per step (as expected)")
+
+    # Two ranks against one process: losses, gradients (bound: the larger of
+    # MAX_GRAD_REL_L2 and 3x the two single runs' difference), the merged
+    # val/tke, the stores, the writers, the checkpoint.
+    names = list(torch.load(outs["single_a"] / "grads.pt"))
+    noise = grad_agreement(torch, *([g[k].cuda() for k in names] for g in
+                                    (torch.load(outs[n] / "grads.pt") for n in ("single_b", "single_a"))), names)
+    bound = max(MAX_GRAD_REL_L2, 3 * noise["worst_rel_l2"])
+    log(f"  two single runs' first-step gradients: cos {noise['cos']!r}, worst leaf {noise['worst_leaf']} rel_l2 "
+        f"{noise['worst_rel_l2']!r}")
+    held = hold_ranks(torch, a, outs["single_a"], [g0, g1], outs["gloo_2"], bound, "2 ranks (gloo)")
+    check((g0["store_file"], g0["store_cases"], g1["store_file"], g1["store_cases"])
+          == ("val-samples.npyd", [DP_VAL_CASES[0]], "val-samples.rank1.npyd", [DP_VAL_CASES[1]])
+          and a["store_cases"] == list(DP_VAL_CASES),
+          f"stores: rank 0 {g0['store_file']} {g0['store_cases']}, rank 1 {g1['store_file']} {g1['store_cases']}")
+    rank1_files = sorted(p.name for p in (outs["gloo_2"] / "rank1").glob("*"))
+    check(not rank1_files, f"rank 1 wrote {rank1_files}")
+    ckpt = CheckpointManager(outs["gloo_2"] / "rank0" / "checkpoints").restore("last")
+    cfg = parse_cli_overrides(DP_RUN + [f"data.root={root}"]).resolved()
+    task = DiffusionTask(cfg.model, FieldStats.from_file(root / "stats.pickle"), "cuda")
+    task.load_state_dict(ckpt)
+    check(task.step == DP_STEPS and not any(k.startswith("module.") for k in ckpt["net"])
+          and all(torch.equal(task.net.state_dict()[k], v.cuda()) for k, v in ckpt["net"].items()),
+          "the 2-rank checkpoint does not restore in one process")
+    log(f"  each rank's store holds its own case; rank 1 wrote no run files; the 2-rank checkpoint (step "
+        f"{task.step}, no module. prefix) restores in one process")
+    del task, ckpt
+
+    # One rank over NCCL against the single runs' own spread (the backward
+    # is not deterministic): the parameters within 3x the spread, a figure
+    # over 55 M values; the first step's loss, of the same parameters and
+    # draws through a deterministic forward, equal where the single runs'
+    # are; each later loss, one sample of the run-to-run noise (a two-run
+    # spread of 4.4e-5 and of 1.7e-4 in two card runs), at the bf16 loss
+    # tolerance.
+    spread = {"loss": max(abs(x - y) for x, y in zip(b["losses"], a["losses"])),
+              "param_rel_l2": param_spread(torch, outs["single_b"], outs["single_a"])}
+    nccl_diff = {"loss": max(abs(x - y) for x, y in zip(n0["losses"], a["losses"])),
+                 "param_rel_l2": param_spread(torch, outs["nccl_1"], outs["single_a"])}
+    log(f"  1 rank over NCCL vs the single run: {nccl_diff} (the single runs' spread {spread}); first losses "
+        f"{n0['losses'][0]!r}, {a['losses'][0]!r}, {b['losses'][0]!r}")
+    check(nccl_diff["param_rel_l2"] <= 3 * spread["param_rel_l2"],
+          f"the NCCL run's parameters differ from the single run's by {nccl_diff['param_rel_l2']}, beyond 3x the "
+          f"spread {spread['param_rel_l2']}")
+    check(a["losses"][0] != b["losses"][0] or n0["losses"][0] == a["losses"][0],
+          f"the NCCL run's first loss {n0['losses'][0]} differs from the single runs' {a['losses'][0]}")
+    check(all(math.isclose(x, y, rel_tol=DP_LOSS_TOL["rel"], abs_tol=DP_LOSS_TOL["abs"])
+              for x, y in zip(n0["losses"], a["losses"])), f"NCCL losses {n0['losses']} vs {a['losses']}")
+
+    ranks = {"single": [a], "gloo_2": [g0, g1], "nccl_1": [n0]}
+    for name, rows in ranks.items():
+        log(f"  {name}: step ms after the first (cold) {[r['step_ms'][1:] for r in rows]!r}, first "
+            f"{[r['step_ms'][0] for r in rows]!r}; peak {[r['peak_gib'] for r in rows]!r} GiB; all-reduce of the "
+            f"{a['n_params']} gradients {[r.get('allreduce_ms') for r in rows]!r} ms")
+    row = {"shared_card": True,
+           "note": "two ranks share one card: their step times are no scaling figure; the single runs and the "
+                   "NCCL rank ran side by side, the gloo ranks alone",
+           "steps": DP_STEPS, "val_cases": list(DP_VAL_CASES),
+           "ranks": {name: [{k: r[k] for k in ("rank", "world", "backend", "device", "card", "step_ms", "peak_gib",
+                                                "fit_s", "allreduce_ms", "losses", "monitor") if k in r}
+                            for r in rows] for name, rows in ranks.items()},
+           "single_b": {k: b[k] for k in ("step_ms", "peak_gib", "losses", "monitor")},
+           "n_params": a["n_params"], **held, "single_vs_single_gradients": noise, "nccl_vs_single": nccl_diff,
+           "single_spread": spread, "card": smi, "phase_s": time.perf_counter() - tic}
+    launches = {"gloo_2": [r["launches"] for r in (g0, g1)], "nccl_1": [n0["launches"]],
+                "per_step": {name: [r["launches_per_step"] for r in rows] for name, rows in ranks.items()}}
+    return launches, row
+
+
+def multi_card_main() -> int:
+    """``python3 chip_smoke.py --multi-card``, on a machine with several
+    cards: phase 6e's paper run at batch 2 x cards, in one process and on
+    one NCCL rank per card under ``torch.distributed.run``: the backend and
+    a card per rank, 7 chain launches per rank per step, the first step's
+    all-reduced gradients held against the single run's (the x 1.1
+    gradients refused), the losses and the merged ``val/tke``; prints one
+    ``multi_card`` JSON line and the card's name and power limit."""
+    if not (ROOT / "generative_turbulence_tpu_torch").is_dir():
+        log("error: run from a checkout of the repository (generative_turbulence_tpu_torch/ missing)")
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    smi = nvidia_smi()
+    n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    log(f"[6f] cards: {n_cards}; {smi}")
+    if n_cards < 2:
+        log("error: --multi-card needs at least two cards")
+        return 1
+    from generative_turbulence_tpu_torch.ops import cuda_kernels as ck
+
+    ck.build_library()
+    tic = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            write_eval_dataset(root, TRAINER_FRAMES, "6f")
+            shutil.copytree(root / "val" / DP_VAL_CASES[0], root / "val" / DP_VAL_CASES[1])
+            extra = [f"model.batch_size={2 * n_cards}"]
+            runs = {"single": ([], {}),
+                    "nccl": (["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(n_cards)],
+                             {"GT_DISTRIBUTED": "1"})}
+            outs = {}
+            for name, run in runs.items():
+                outs.update(finish_runs(start_runs(root, {name: run}, extra)))
+            (a,), ranks = rank_rows(outs["single"], 1), rank_rows(outs["nccl"], n_cards)
+            check(all(r["backend"] == "nccl" and r["world"] == n_cards for r in ranks)
+                  and sorted(r["device"] for r in ranks) == [f"cuda:{i}" for i in range(n_cards)],
+                  f"ranks: {[(r['backend'], r['world'], r['device']) for r in ranks]}")
+            check_rank_steps([a, *ranks])
+            held = hold_ranks(torch, a, outs["single"], ranks, outs["nccl"], MAX_GRAD_REL_L2, f"{n_cards} NCCL ranks")
+    except SmokeFailure as e:
+        log(f"FAILED: {e}")
+        return 1
+    row = {"cards": n_cards, "batch": 2 * n_cards, "steps": DP_STEPS,
+           "ranks": [{k: r[k] for k in ("rank", "world", "backend", "device", "step_ms", "peak_gib", "fit_s",
+                                         "allreduce_ms", "losses", "monitor")} for r in ranks],
+           "single": {k: a[k] for k in ("device", "step_ms", "peak_gib", "fit_s", "losses", "monitor")},
+           **held, "n_params": a["n_params"], "seconds": time.perf_counter() - tic}
+    print(smi)
+    print(json.dumps({"multi_card": row, "card": smi}))
+    return 0
+
+
 def main() -> int:
     if not (ROOT / "generative_turbulence_tpu_torch").is_dir():
         log("error: run from a checkout of the repository (generative_turbulence_tpu_torch/ missing)")
@@ -1988,6 +2373,8 @@ def main() -> int:
             ckpt_launches, ckpt_rows = checkpoint_eval_phase(torch, ck, Path(tmp), smi)
             ckpt_rows["phase_s"] = time.perf_counter() - tic
             log(f"  phase 6d took {ckpt_rows['phase_s']!r} s")
+            dp_launches, dp_rows = data_parallel_phase(torch, ck, Path(tmp), smi)
+            log(f"  phase 6e took {dp_rows['phase_s']!r} s")
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1
@@ -2003,7 +2390,8 @@ def main() -> int:
         name = entry["name"]
         entry["launches"] = (launches4[name] + launches2[name] + train_launches4[name] + train_launches2[name]
                              + sum(counts[name] for counts in eval_launches.values()) + trainer_launches[name]
-                             + sum(counts[name] for counts in ckpt_launches.values()))
+                             + sum(counts[name] for counts in ckpt_launches.values())
+                             + sum(counts[name] for counts in dp_launches["gloo_2"] + dp_launches["nccl_1"]))
         entry["launches_by_path"] = {
             "4_levels": launches4[name], "2_levels": launches2[name],
             "train_4_levels": train4["launches_per_step"][name],
@@ -2015,8 +2403,12 @@ def main() -> int:
             "trainer_dilresnet": trainer_rows["dilresnet"]["launches"][name],
             "checkpoint_eval_per_val_batch": ckpt_launches["eval_ckpt"][name] / ckpt_rows["val_batches"],
             "checkpoint_eval": {step: counts[name] for step, counts in ckpt_launches.items()},
+            "dp_gloo_2_per_rank_per_step": [[c[name] for c in rank] for rank in dp_launches["per_step"]["gloo_2"]],
+            "dp_nccl_1_per_step": [c[name] for c in dp_launches["per_step"]["nccl_1"][0]],
+            "dp_gloo_2_per_rank": [counts[name] for counts in dp_launches["gloo_2"]],
         }
     log(f"[7] card: {smi}")
+    print(json.dumps({"distributed": dp_rows, "card": smi}))
     print(json.dumps({"checkpoint_eval": ckpt_rows, "card": smi}))
     print(json.dumps({"trainer": trainer_rows, "card": smi}))
     print(json.dumps({"eval_path": eval_rows, "card": smi}))
@@ -2032,4 +2424,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(Path(sys.argv[2]), sys.argv[3:]))
+    if sys.argv[1:] == ["--multi-card"]:
+        sys.exit(multi_card_main())
     sys.exit(main())

@@ -13,12 +13,17 @@ also the copy of each batch to the device (``Batch.to``: pinned host memory,
 Left out, as workarounds for the TPU host link and XLA recompiles: the cell
 bucket, the pooled host buffers (``HostBufferPool``, ``collate_pooled``), the
 device-resident frame cache and the bf16 transfer.  The rank and world size
-of multi-process runs come from ``torch.distributed`` when it is initialised.
+of multi-process runs come from ``torch.distributed`` when it is initialised:
+every rank then draws the same global train batches and reads only its own
+rows of each (``parallel.mesh.local_rows``), or, with ``shard_by_host``, its
+own cases at the full batch, all ranks taking as many batches as the
+shortest shard holds.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 import queue
 import threading
@@ -28,19 +33,20 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel.distributed import process_rank_and_world, reduce_host_value
+from ..parallel.mesh import local_rows
 from .grid import GridMap
 from .schema import CaseMetadata, CaseRepository, FieldStats, find_data_files
 from .variables import Variable
 
 
-def process_rank_and_world() -> Tuple[int, int]:
-    """(rank, world size) of an initialised ``torch.distributed`` group,
-    else (0, 1)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+def pinned_device(device):
+    """``device``, a bare ``cuda`` made the calling thread's current card:
+    the prefetch thread, where batches move to the device, has a current
+    card of its own (card 0)."""
+    if device is not None and torch.device(device) == torch.device("cuda"):
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 @dataclasses.dataclass
@@ -293,9 +299,10 @@ class DataModule:
     (``data.npyd`` or ``data.h5`` per case, ``find_data_files``).
 
     ``device``: None yields host batches; a device moves each batch there in
-    the prefetch thread.  ``shard_by_host`` splits the train cases and
-    ``shard_eval`` the evaluation cases over the processes of a
-    ``torch.distributed`` run.
+    the prefetch thread.  In a ``torch.distributed`` run each rank keeps its
+    rows of every global train batch of ``batch_size``; ``shard_by_host``
+    instead splits the train cases over the ranks, each taking full batches
+    of its own cases, and ``shard_eval`` splits the evaluation cases.
     """
 
     def __init__(
@@ -324,12 +331,13 @@ class DataModule:
         self.seed = seed
         self.shard_by_host = shard_by_host
         self.shard_eval = shard_eval
-        self.device = device
+        self.device = pinned_device(device)
 
         self.stats: Optional[FieldStats] = None
         self.train_dataset: Optional[CaseDataset] = None
         self.val_dataset: Optional[CaseDataset] = None
         self.test_dataset: Optional[CaseDataset] = None
+        self._n_train_batches: Optional[int] = None
 
     def setup(self, stage: str = "fit") -> "DataModule":
         if self.stats is None:
@@ -362,10 +370,24 @@ class DataModule:
         sampler = GeometryPureBatches(
             self.train_dataset, batch_size=self.batch_size, shuffle=True, seed=self.seed, epoch=epoch
         )
+        rank, world = process_rank_and_world()
+        if self.shard_by_host:
+            # A rank that ran out of batches first would leave the others
+            # waiting in the gradients' all-reduce.
+            sampler = itertools.islice(sampler, self.n_train_batches())
+        elif world > 1:
+            sampler = (local_rows(idxs, rank, world) for idxs in sampler)
         return self._iterate(self.train_dataset, sampler)
 
     def n_train_batches(self) -> int:
-        return len(GeometryPureBatches(self.train_dataset, batch_size=self.batch_size, shuffle=True))
+        """Train batches per epoch; with ``shard_by_host``, the fewest any
+        rank's shard holds (a collective on the first call)."""
+        if self._n_train_batches is None:
+            n = len(GeometryPureBatches(self.train_dataset, batch_size=self.batch_size, shuffle=True))
+            if self.shard_by_host:
+                n = int(reduce_host_value(n, "min"))
+            self._n_train_batches = n
+        return self._n_train_batches
 
     def _eval_shard(self) -> Tuple[int, int]:
         return process_rank_and_world() if self.shard_eval else (0, 1)

@@ -10,7 +10,9 @@ are bit-equal to its own for the same seed and epoch.
 Left out, as in ``data/dataset.py``: the cell bucket and the
 device-resident window cache (``SequenceDeviceCache``), workarounds for the
 TPU host link and XLA recompiles.  With ``device`` set, each batch is moved
-there in the prefetch thread (``Batch.to``).
+there in the prefetch thread (``Batch.to``).  In a ``torch.distributed`` run
+each rank keeps its rows of every global train batch, as ``DataModule``
+does.
 """
 
 from __future__ import annotations
@@ -22,12 +24,15 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.distributed import process_rank_and_world
+from ..parallel.mesh import local_rows
 from .dataset import (
     Batch,
     CaseData,
     CaseDataset,
     EvaluationBatches,
     GeometryPureBatches,
+    pinned_device,
     prefetch,
 )
 from .grid import GridMap
@@ -137,7 +142,7 @@ class SequenceDataModule:
         self.stride = stride
         self.prefetch_size = prefetch_size
         self.seed = seed
-        self.device = device
+        self.device = pinned_device(device)
         # The JAX module shards no evaluation cases (the Trainer asks).
         self.shard_eval = False
 
@@ -173,6 +178,9 @@ class SequenceDataModule:
         sampler = GeometryPureBatches(
             self.train_dataset, batch_size=self.batch_size, shuffle=True, seed=self.seed, epoch=epoch
         )
+        rank, world = process_rank_and_world()
+        if world > 1:
+            sampler = (local_rows(idxs, rank, world) for idxs in sampler)
         return self._iterate(self.train_dataset, sampler)
 
     def n_train_batches(self) -> int:

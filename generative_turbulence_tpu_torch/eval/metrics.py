@@ -20,7 +20,8 @@ embedding, spectra, vorticity, the Sinkhorn solve) runs on the metric's
 
 ``SampleMetricsCollection`` runs each metric per case against ground-truth
 frames spaced evenly over the SECOND half of the simulation and averages
-across cases.
+across cases; in a ``torch.distributed`` run it merges the per-case values
+of every rank first.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from ..data.variables import Variable
 from ..ops.sinkhorn import masked_sinkhorn_emd2
 from ..ops.spectra import SpectrumOps, log_tke_distance_matrix
 from ..ops.stencils import curl
+from ..parallel.distributed import allgather_objects
 from .emd import emd2_sq_rows, wasserstein2
 from .sample_store import SampleStore
 
@@ -293,10 +295,10 @@ class SampleMetricsCollection:
     def compute(
         self, sample_store: SampleStore, stats: FieldStats, *, expensive_metrics: bool = True
     ) -> Dict[str, float]:
-        # The per-case loop does not raise before the point where a
-        # multi-process run merges the ranks' per-case dicts: a rank that
-        # raised there while the others merged would hang them.  A failure is
-        # kept and raised after that point.
+        # The per-case loop does not raise before the ranks' per-case dicts
+        # are merged: a rank that raised there while the others merged would
+        # leave them waiting.  A failure travels through the merge as an
+        # ``__error__`` entry, and every rank raises after it.
         per_case: Dict[str, Dict[str, float]] = {}
         failure: Optional[Exception] = None
         try:
@@ -323,11 +325,24 @@ class SampleMetricsCollection:
                 per_case[case_name] = case_values
         except Exception as e:
             failure = e
+            per_case["__error__"] = {"rank_error": 1.0}
 
-        # One process: its per-case values are the merged ones.
-        merged = per_case
+        # Each rank evaluated its shard of the cases (its own store file):
+        # every rank ends with the metrics of all cases, so early stopping and
+        # the best checkpoint are decided alike.  Where the ranks' cases
+        # overlap (evaluation without shard_eval), rank 0's values win.
+        merged: Dict[str, Dict[str, float]] = {}
+        other_failed = False
+        for rank_cases in allgather_objects(per_case):
+            for case_name, case_values in rank_cases.items():
+                if case_name == "__error__":
+                    other_failed = True
+                    continue
+                merged.setdefault(case_name, case_values)
         if failure is not None:
             raise RuntimeError(f"sample-metric computation failed: {type(failure).__name__}: {failure}") from failure
+        if other_failed:
+            raise RuntimeError("sample-metric computation failed on another rank (see that rank's log)")
 
         values: Dict[str, float] = {}
         metric_names = set()

@@ -33,10 +33,11 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
-from ..data.dataset import CaseData, process_rank_and_world
+from ..data.dataset import CaseData
 from ..data.npyd import is_npyd, read_attrs, write_attrs
 from ..data.schema import CaseMetadata
 from ..data.variables import Variable, channel_slices
+from ..parallel.distributed import process_rank_and_world
 
 
 class SampleStore:

@@ -287,11 +287,12 @@ def _conv3x3x3_stats_kernel(x, w, bias, act):
     partial = torch.empty((B, n_bricks, 2, Fo), dtype=torch.float32, device=x.device)
     pa = act[0].data_ptr() if act is not None else None
     pb = act[1].data_ptr() if act is not None else None
-    status = lib.gt_conv3x3x3_stats(
-        x.data_ptr(), wp.data_ptr(), bias.data_ptr(), pa, pb,
-        out.data_ptr(), partial.data_ptr(), B, X, Y, Z, C, Fo, bn, kc,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):  # the library sets attributes on the current device
+        status = lib.gt_conv3x3x3_stats(
+            x.data_ptr(), wp.data_ptr(), bias.data_ptr(), pa, pb,
+            out.data_ptr(), partial.data_ptr(), B, X, Y, Z, C, Fo, bn, kc,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     name = "conv3x3x3_stats" if act is None else "conv3x3x3_stats_silu_in"
     _check_status(status, name)
     LAUNCH_COUNTS[name] += 1
@@ -347,11 +348,12 @@ def affine_silu(
     if out.numel() == 0:
         return out  # nothing to launch
     lib = _library()
-    status = lib.gt_affine_silu(
-        h.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
-        int(out_dtype == torch.float32), B, X * Y * Z, Fo,
-        torch.cuda.current_stream(h.device).cuda_stream,
-    )
+    with torch.cuda.device(h.device):
+        status = lib.gt_affine_silu(
+            h.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            int(out_dtype == torch.float32), B, X * Y * Z, Fo,
+            torch.cuda.current_stream(h.device).cuda_stream,
+        )
     _check_status(status, "affine_silu")
     LAUNCH_COUNTS["affine_silu"] += 1
     return out
@@ -385,11 +387,12 @@ def _conv3d_3x3_kernel(x, w, b):
     bb = b.to(device=x.device, dtype=torch.float32).contiguous()
     lib = _library()
     out = torch.empty((B, X, Y, Z, Fo), dtype=x.dtype, device=x.device)
-    status = lib.gt_conv3d_3x3(
-        x.data_ptr(), wp.data_ptr(), bb.data_ptr(), out.data_ptr(),
-        int(x.dtype == torch.float32), B, X, Y, Z, C, Fo, bn, kc,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):
+        status = lib.gt_conv3d_3x3(
+            x.data_ptr(), wp.data_ptr(), bb.data_ptr(), out.data_ptr(),
+            int(x.dtype == torch.float32), B, X, Y, Z, C, Fo, bn, kc,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     _check_status(status, "conv3d_3x3")
     LAUNCH_COUNTS["conv3d_3x3"] += 1
     return out
@@ -448,11 +451,12 @@ def _flash_attention_kernel(q, k, v, strides):
     if out.numel() == 0:
         return out  # nothing to launch
     lib = _library()
-    status = lib.gt_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.float32), B, H, N, D, *strides,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    with torch.cuda.device(q.device):
+        status = lib.gt_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            int(q.dtype == torch.float32), B, H, N, D, *strides,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
     _check_status(status, "flash_attention")
     LAUNCH_COUNTS["flash_attention"] += 1
     return out

@@ -17,6 +17,16 @@ The run is on the GPU (``cuda``) unless ``--device`` names another device;
 without a GPU it stops rather than train on the CPU.  ``config=<file>.yaml``
 needs PyYAML; overrides need nothing beyond the package.
 
+Data-parallel runs, one process per rank (``parallel/distributed.py``):
+
+    GT_DISTRIBUTED=1 python -m torch.distributed.run --nproc-per-node 4 \
+        -m generative_turbulence_tpu_torch.train model=diffusion data.root=...
+    GT_DIST_NUM_PROCESSES=2 GT_DIST_PROCESS_ID=<r> GT_DIST_COORDINATOR=host:port \
+        python -m generative_turbulence_tpu_torch.train ...
+
+``--device cuda`` is then each rank's own card (NCCL), or the card the
+host's ranks share (gloo); ``--device cpu`` runs the ranks over gloo.
+
 ``trainer.matmul_precision`` maps onto TF32:
 ``default`` leaves torch's settings as they are, ``high`` allows TF32 in
 matmuls and cuDNN convolutions (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -48,20 +58,24 @@ def set_matmul_precision(precision: str) -> None:
 
 
 def resolve_device(name: str):
-    """The torch device of a run; a CUDA device where there is none stops
-    the run rather than let it fall back to the CPU."""
+    """The torch device of a run (``cuda``: the current card, the rank's in
+    a distributed run); a CUDA device where there is none stops the run
+    rather than let it fall back to the CPU."""
     import torch
+
+    from .data.dataset import pinned_device
 
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is False (pass --device cpu to run on the CPU)")
-    return device
+    return pinned_device(device)
 
 
 @print_exceptions
 def main(argv=None):
     import torch
 
+    from .parallel.distributed import initialize_distributed
     from .training.config import parse_cli_overrides
     from .training.factory import instantiate_data_and_task
     from .training.loop import Trainer
@@ -70,6 +84,9 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda", help="torch device of the run (default: cuda)")
     parser.add_argument("overrides", nargs="*", help="key=value config overrides")
     args = parser.parse_intermixed_args(argv)
+    # The process group (a no-op in a single-process run) comes first: it
+    # picks the rank's card.
+    initialize_distributed(args.device)
     device = resolve_device(args.device)
 
     try:

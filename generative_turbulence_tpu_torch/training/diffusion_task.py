@@ -37,6 +37,7 @@ from ..eval.sample_store import SampleStore
 from ..models.conditioning import Conditioning
 from ..models.normalization import Normalizer
 from ..models.unet import DenoisingModel
+from ..parallel.distributed import data_parallel, mean_over_ranks
 from ..toolchain.from_flax import torch_state_dict_from_flax
 from .config import ModelConfig
 from .optimizers import OptState, build_optimizer
@@ -119,6 +120,11 @@ class DiffusionTask:
     (``SampleMetricsCollection.default_metrics``, with the point-cloud
     Wasserstein on ``wasserstein_solver``), each reading the ground truth of
     its own split, on ``device``.
+
+    In a ``torch.distributed`` run ``training_step`` runs ``net`` under
+    ``DistributedDataParallel`` (``train_net``), which averages the
+    gradients over the ranks; everything else uses ``net`` itself, so the
+    state dict's names are the same at any world size.
     """
 
     def __init__(
@@ -213,6 +219,7 @@ class DiffusionTask:
         self.step = 0
         self.opt_state: Optional[OptState] = None
         self.ema: Optional[Dict[str, torch.Tensor]] = None
+        self._train_net: Optional[torch.nn.Module] = None
 
         self.sample_stores: Dict[str, SampleStore] = {}
         self.metrics: Dict[str, SampleMetricsCollection] = {}
@@ -254,6 +261,14 @@ class DiffusionTask:
     def n_params(self) -> int:
         return sum(p.numel() for p in self.net.parameters())
 
+    @property
+    def train_net(self) -> torch.nn.Module:
+        """``net`` as the train step calls it: under
+        ``DistributedDataParallel`` in a process group."""
+        if self._train_net is None:
+            self._train_net = data_parallel(self.net)
+        return self._train_net
+
     def state_dict(self) -> Dict:
         """The train state for a checkpoint: step, parameters, optimizer
         state and EMA.  Like ``nn.Module.state_dict`` it holds the live
@@ -279,14 +294,16 @@ class DiffusionTask:
     def _model_input(self, cells: torch.Tensor, grid: GridMap) -> torch.Tensor:
         return self.normalizer.normalize(embed_cells(cells, grid))
 
-    def _eps_fn(self, grid: GridMap, params: Optional[Mapping] = None):
-        """``net`` over the grid's cell types, with its own parameters or
-        ``params`` (a name -> tensor mapping) in their place."""
+    def _eps_fn(self, grid: GridMap, params: Optional[Mapping] = None, net: Optional[torch.nn.Module] = None):
+        """``net`` (default: ``self.net``) over the grid's cell types, with
+        its own parameters or ``params`` (a name -> tensor mapping) in their
+        place."""
+        net = self.net if net is None else net
 
         def eps_fn(x_t: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
             if params is None:
-                return self.net(x_t, t, grid.cell_types)
-            return functional_call(self.net, params, (x_t, t, grid.cell_types))
+                return net(x_t, t, grid.cell_types)
+            return functional_call(net, params, (x_t, t, grid.cell_types))
 
         return eps_fn
 
@@ -297,8 +314,12 @@ class DiffusionTask:
         gradients (left in each parameter's ``.grad``), the optimizer (an
         update on every ``cfg.accumulate_steps``-th micro-step) and the
         warm-up EMA.  Returns ``{"train/loss": loss}`` as a device tensor:
-        no sync with the host.  The three parts run in the profiler ranges
-        ``train/loss``, ``train/backward`` and ``train/optimizer``."""
+        no sync with the host; in a group of several ranks ``cells`` are the
+        rank's rows of the global batch, ``noise`` gives the rank's rows of
+        the global draws (``parallel.mesh.RankRows``), the gradients are the
+        global batch's and the loss is the mean over the ranks.  The three
+        parts run in the profiler ranges ``train/loss``, ``train/backward``
+        (with DDP's all-reduce) and ``train/optimizer``."""
         if self.opt_state is None:
             self.init_state()
         params = list(self.net.parameters())
@@ -306,7 +327,7 @@ class DiffusionTask:
             p.grad = None
         with record_function("train/loss"):
             x = self._model_input(cells, grid)
-            loss = self.diffusion.loss(self._eps_fn(grid), x, grid, noise)
+            loss = self.diffusion.loss(self._eps_fn(grid, net=self.train_net), x, grid, noise)
         with record_function("train/backward"):
             loss.backward()
         with record_function("train/optimizer"):
@@ -315,7 +336,7 @@ class DiffusionTask:
             self.step += 1
             if self.ema is not None and updated:
                 self._update_ema()
-        return {"train/loss": loss.detach()}
+        return {"train/loss": mean_over_ranks(loss.detach())}
 
     @torch.no_grad()
     def _update_ema(self) -> None:

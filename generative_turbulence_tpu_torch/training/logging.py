@@ -16,13 +16,7 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
-
-def _is_main_process() -> bool:
-    """Rank 0 of an initialised ``torch.distributed`` group, or a single
-    process."""
-    import torch.distributed as dist
-
-    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+from ..parallel.distributed import is_main_process
 
 
 class MetricLogger:
@@ -30,7 +24,7 @@ class MetricLogger:
         self.out_dir = Path(out_dir)
         # Multi-process runs: metrics are replicated across processes, so only
         # rank 0 writes (JSONL, summary, wandb); other ranks stay silent.
-        self.main = _is_main_process()
+        self.main = is_main_process()
         self.file = None
         if self.main:
             self.out_dir.mkdir(parents=True, exist_ok=True)

@@ -20,6 +20,14 @@ The default, ``KeyedNoise``, seeds a ``torch.Generator`` on the run's device
 from (trainer.seed, kind, *key) by a fixed hash: a killed-and-resumed run
 draws what an unkilled one draws, and a case's draws do not depend on the
 order of the cases.  Tests replay the JAX loop's draws through it.
+
+In a ``torch.distributed`` run (``parallel.distributed``) every rank runs
+this loop on its rows of the global batches, with its rows of the step's
+global draws (``parallel.mesh.RankRows``); the stop decisions (time limit,
+max_steps, early stopping) are taken alike on every rank; only rank 0
+writes logs and checkpoints; with ``data.shard_eval`` each rank validates
+its own cases and the metrics and the diagnostics are merged.
+``trainer.mesh_shape`` is None or ``(world size, 1)``.
 """
 
 from __future__ import annotations
@@ -33,8 +41,9 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..data.dataset import process_rank_and_world
 from ..diffusion.gaussian import GeneratorNoise, NoiseFn
+from ..parallel.distributed import allgather_objects, process_rank_and_world, reduce_host_value
+from ..parallel.mesh import check_mesh_shape, rank_noise
 from .checkpoint import CheckpointManager
 from .config import Config
 from .logging import MetricLogger
@@ -99,6 +108,8 @@ class Trainer:
         self.dm = datamodule
         self.device = task.device
         tc = self.config.trainer
+        self.rank, self.world = process_rank_and_world()
+        check_mesh_shape(tc.mesh_shape, self.world)
         self.out_dir = Path(tc.out_dir)
         if use_wandb is None:
             use_wandb = tc.use_wandb
@@ -154,7 +165,8 @@ class Trainer:
                 if tc.profile_steps > 0 and step == tc.profile_start and profiler is None:
                     profiler = self._start_profile()
                 batch = batch.to(self.device)
-                metrics = self.task.training_step(batch.cells, batch.grid, self.noise_factory("train", step))
+                noise = rank_noise(self.noise_factory("train", step))
+                metrics = self.task.training_step(batch.cells, batch.grid, noise)
                 step += 1
                 if profiler is not None and step >= tc.profile_start + tc.profile_steps:
                     self._stop_profile(profiler)
@@ -168,7 +180,8 @@ class Trainer:
                     metrics["steps_per_sec"] = tc.log_every_n_steps / (now - step_tic)
                     step_tic = now
                     self.logger.log(metrics, step=step, epoch=epoch)
-                if self.time_limit is not None and time.time() - start > self.time_limit:
+                # Each rank reads its own clock: the slowest decides for all.
+                if self.time_limit is not None and reduce_host_value(time.time() - start > self.time_limit, "max"):
                     self.logger.console("train limit reached; running final validation")
                     stop = True
                     break
@@ -206,6 +219,7 @@ class Trainer:
 
             if (epoch + 1) % tc.checkpoint_every_n_epochs == 0 or final_epoch:
                 self.ckpt.save_last(self.task.state_dict(), step)
+            stop = bool(reduce_host_value(stop, "max"))
 
         if profiler is not None:
             self._stop_profile(profiler)
@@ -227,7 +241,7 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         profiler.stop()
-        trace = self.out_dir / "profile" / "trace.json"
+        trace = self.out_dir / "profile" / ("trace.json" if self.world == 1 else f"trace.rank{self.rank}.json")
         trace.parent.mkdir(parents=True, exist_ok=True)
         profiler.export_chrome_trace(str(trace))
         self.logger.console(f"profiler trace in {trace}")
@@ -236,10 +250,6 @@ class Trainer:
         tc = self.config.trainer
         self.dm.setup("validate")
         has_diag = hasattr(self.task, "eval_diagnostics")
-        if has_diag and self.dm.shard_eval and process_rank_and_world()[1] > 1:
-            raise NotImplementedError(
-                "shard_eval over several ranks needs the cross-rank merge of the diagnostics, not ported yet"
-            )
         self.task.on_eval_start("val")
         step_outputs = []
         # The epoch is folded in so successive validations draw fresh noise;
@@ -248,7 +258,9 @@ class Trainer:
         batch_in_case: Dict[str, int] = {}
         diagnostics: Dict[str, float] = {}
         # Diagnostics run on ONE canonical batch: the first batch of the
-        # globally-first val case.
+        # globally-first val case, so that under shard_eval every rank ends
+        # with the values of the single-process run: exactly one rank owns
+        # that case, and the others receive its dict through the merge below.
         first_case = self.dm.first_val_case() if has_diag else None
         for batch in self.dm.val_batches():
             case = batch.metadata.case_name
@@ -262,11 +274,15 @@ class Trainer:
             out = self.task.eval_step(batch, self.noise_factory("val", fold, case, k), "val")
             if out:
                 step_outputs.append(out)
+        if has_diag and self.dm.shard_eval and self.world > 1:
+            # Collective: every rank calls it once per validation, with an
+            # empty dict where it does not own the case.
+            diagnostics = next((d for d in allgather_objects(diagnostics) if d), diagnostics)
         metrics = self.task.on_eval_end(self.dm.stats, "val", expensive=expensive)
         metrics.update(diagnostics)
         metrics.update(_mean_over_batches(step_outputs))
         self.logger.log(metrics, step=self.task.step, epoch=epoch)
-        if tc.render_plots and hasattr(self.task, "render_plots"):
+        if tc.render_plots and hasattr(self.task, "render_plots") and self.rank == 0:
             try:
                 self.task.render_plots(self.out_dir, "val", self.task.step)
             except Exception as e:  # plots must never kill a run

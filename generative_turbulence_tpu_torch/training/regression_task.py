@@ -14,6 +14,11 @@ statistics (momentum 0.1, the unbiased batch variance) freeze after
 ``N_TRACK_BATCHES`` micro-steps; until then the target is normalized by the
 batch's own statistics.  TF-Net's BatchNorm statistics are parameters, as in
 the JAX task (``models/tfnet.py``).
+
+In a ``torch.distributed`` run the train step runs the net under
+``DistributedDataParallel`` (``train_net``), which averages the gradients
+(TF-Net's BatchNorm statistics among them) over the ranks, and DilResNet's
+batch statistics are those of the global batch.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from ..models.conditioning import Conditioning
 from ..models.dilresnet import DilResNet
 from ..models.normalization import Normalizer
 from ..models.tfnet import TFNet
+from ..parallel.distributed import data_parallel, mean_over_ranks, process_rank_and_world, sum_over_ranks
 from ..toolchain.from_flax import torch_state_dict_from_flax
 from .config import ModelConfig
 from .diffusion_task import _net_dtype
@@ -99,6 +105,7 @@ class RegressionTaskBase:
         )
         self.step = 0
         self.opt_state: Optional[OptState] = None
+        self._train_net: Optional[torch.nn.Module] = None
         self._reset_delta_stats()
 
         self.sample_stores: Dict[str, Dict[int, SampleStore]] = {}
@@ -153,6 +160,14 @@ class RegressionTaskBase:
     def n_params(self) -> int:
         return sum(p.numel() for p in self.net.parameters())
 
+    @property
+    def train_net(self) -> torch.nn.Module:
+        """``net`` as the train step calls it: under
+        ``DistributedDataParallel`` in a process group."""
+        if self._train_net is None:
+            self._train_net = data_parallel(self.net)
+        return self._train_net
+
     def state_dict(self) -> Dict:
         """The train state for a checkpoint; holds the live tensors."""
         if self.opt_state is None:
@@ -178,17 +193,20 @@ class RegressionTaskBase:
 
     # ---- rollout ---------------------------------------------------------------
 
-    def _forecast_one(self, ctx: torch.Tensor, grid: GridMap) -> torch.Tensor:
-        """One-step prediction from context (B, W, X, Y, Z, F) -> (B, X, Y, Z, F)."""
+    def _forecast_one(self, ctx: torch.Tensor, grid: GridMap, net: torch.nn.Module) -> torch.Tensor:
+        """One-step prediction by ``net`` from context (B, W, X, Y, Z, F) ->
+        (B, X, Y, Z, F)."""
         raise NotImplementedError
 
-    def _predict_x(self, x_context: torch.Tensor, grid: GridMap, n_steps: int) -> torch.Tensor:
+    def _predict_x(self, x_context: torch.Tensor, grid: GridMap, n_steps: int,
+                   net: Optional[torch.nn.Module] = None) -> torch.Tensor:
         """Unroll ``n_steps`` with boundary values frozen (inside-mask select):
-        (B, n_steps, X, Y, Z, F)."""
+        (B, n_steps, X, Y, Z, F); ``net`` defaults to ``self.net``."""
+        net = self.net if net is None else net
         inside = grid.inside_mask[..., None]
         ctx, xs = x_context, []
         for _ in range(n_steps):
-            x_hat = torch.where(inside, self._forecast_one(ctx, grid), ctx[:, -1])
+            x_hat = torch.where(inside, self._forecast_one(ctx, grid, net), ctx[:, -1])
             ctx = torch.cat([ctx[:, 1:], x_hat[:, None]], dim=1)
             xs.append(x_hat)
         return torch.stack(xs, dim=1)
@@ -198,7 +216,7 @@ class RegressionTaskBase:
     def _loss(self, x: torch.Tensor, grid: GridMap, noise: NoiseFn) -> torch.Tensor:
         """The unrolled MSE against the targets after the context."""
         x_ctx, x_tgt = x[:, : self.context_window], x[:, self.context_window :]
-        x_hat = self._predict_x(x_ctx, grid, x_tgt.shape[1])
+        x_hat = self._predict_x(x_ctx, grid, x_tgt.shape[1], self.train_net)
         return torch.mean((x_hat - x_tgt) ** 2)
 
     def training_step(self, cells: torch.Tensor, grid: GridMap, noise: NoiseFn) -> Dict[str, torch.Tensor]:
@@ -206,7 +224,10 @@ class RegressionTaskBase:
         gradients (left in each parameter's ``.grad``) and the optimizer (an
         update on every ``cfg.accumulate_steps``-th micro-step).  ``noise``
         supplies the random draws (DilResNet's input noise).  Returns
-        ``{"train/loss": loss}`` as a device tensor: no sync with the host."""
+        ``{"train/loss": loss}`` as a device tensor: no sync with the host;
+        in a group of several ranks, as in ``DiffusionTask.training_step``,
+        the gradients are the global batch's and the loss is the mean over
+        the ranks."""
         if self.opt_state is None:
             self.init_state()
         params = list(self.net.parameters())
@@ -217,7 +238,7 @@ class RegressionTaskBase:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         self.tx.step_(params, grads, self.opt_state)
         self.step += 1
-        return {"train/loss": loss.detach()}
+        return {"train/loss": mean_over_ranks(loss.detach())}
 
     @torch.no_grad()
     def eval_step(self, batch: Batch, noise: NoiseFn, phase: str) -> Dict[str, float]:
@@ -296,8 +317,8 @@ class TFNetTask(RegressionTaskBase):
             dtype=self.dtype,
         )
 
-    def _forecast_one(self, ctx: torch.Tensor, grid: GridMap) -> torch.Tensor:
-        return self.net(ctx, grid.cell_types)
+    def _forecast_one(self, ctx: torch.Tensor, grid: GridMap, net: torch.nn.Module) -> torch.Tensor:
+        return net(ctx, grid.cell_types)
 
 
 class DilResNetTask(RegressionTaskBase):
@@ -318,9 +339,9 @@ class DilResNetTask(RegressionTaskBase):
             dtype=self.dtype,
         )
 
-    def _forecast_one(self, ctx: torch.Tensor, grid: GridMap) -> torch.Tensor:
+    def _forecast_one(self, ctx: torch.Tensor, grid: GridMap, net: torch.nn.Module) -> torch.Tensor:
         x_last = ctx[:, -1]
-        dx_normed = self.net(x_last, grid.cell_types)
+        dx_normed = net(x_last, grid.cell_types)
         return x_last + (self.dx_mean + torch.sqrt(self.dx_var) * dx_normed)
 
     def _loss(self, x: torch.Tensor, grid: GridMap, noise: NoiseFn) -> torch.Tensor:
@@ -330,9 +351,11 @@ class DilResNetTask(RegressionTaskBase):
         if self.cfg.training_noise_std is not None:
             x0 = x0 + self.cfg.training_noise_std * noise(x0.shape).to(x0.dtype)
         dx_cells = gather_cells(x[:, self.context_window] - x0, grid)  # (B, N, F)
-        n = float(dx_cells.shape[0] * grid.n_cells)
-        batch_mean = dx_cells.sum(dim=(0, 1)) / n
-        batch_var = (dx_cells**2).sum(dim=(0, 1)) / n - batch_mean**2
+        # The global batch's moments: the sums over every rank's equal rows.
+        sums = sum_over_ranks(torch.stack([dx_cells.sum(dim=(0, 1)), (dx_cells**2).sum(dim=(0, 1))]))
+        n = float(dx_cells.shape[0] * grid.n_cells * process_rank_and_world()[1])
+        batch_mean = sums[0] / n
+        batch_var = sums[1] / n - batch_mean**2
 
         if self.n_tracked < self.N_TRACK_BATCHES:
             m = self.BN_MOMENTUM
@@ -345,5 +368,5 @@ class DilResNetTask(RegressionTaskBase):
             norm_mean, norm_var = self.dx_mean, self.dx_var
         self.n_tracked += 1
         dx_target = (dx_cells - norm_mean) / torch.sqrt(norm_var + 1e-5)
-        dx_hat_cells = gather_cells(self.net(x0, grid.cell_types), grid)
+        dx_hat_cells = gather_cells(self.train_net(x0, grid.cell_types), grid)
         return torch.mean((dx_hat_cells - dx_target) ** 2)

@@ -683,3 +683,86 @@ def test_import_checkpoint_round_trip_on_gpu(tiny_checkpoint, npyd_root, tmp_pat
     imported, from_source = _stored(tmp_path / "imported.npyd", npyd_root), _stored(tmp_path / "source.npyd", npyd_root)
     for v in from_source:
         np.testing.assert_array_equal(imported[v], from_source[v])
+
+
+# ---- several ranks and several cards ------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_kernels_launch_on_the_tensors_card():
+    """Tensors on cuda:1 while cuda:0 is the current device: each wrapper
+    launches on the tensors' card (the library sets the shared-memory limit
+    and reads the SM count on the current device), and cuda:0 stays
+    current."""
+    _needs_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs a second card; this machine has {torch.cuda.device_count()}")
+    torch.cuda.set_device(0)
+    card = torch.device("cuda", 1)
+    targs = [a.to(card) if a is not None else None for a in _torch(_make_args(B=2, X=40, Y=12, Z=12, C=64, F=128))]
+    targs[0] = targs[0].bfloat16()
+    got = ck.fused_double_conv_block(*targs, 8, 1e-5)
+    want = ck.reference_double_conv(*targs, num_groups=8, eps=1e-5)
+    q, k, v = (t.to(card) for t in _flash_inputs(2, 4, 2048, 32, torch.bfloat16, True, seed=3))
+    flash = ck.flash_attention(q, k, v)
+    torch.cuda.synchronize(card)
+    assert got.device == flash.device == card and torch.cuda.current_device() == 0
+    _assert_bf16_close(got.float().cpu().numpy(), want.float().cpu().numpy())
+    _assert_bf16_close(flash.float().cpu().numpy(), ck._flash_attention_plain(q, k, v).float().cpu().numpy(),
+                       scaled=True)
+
+
+# 1 U-Net level at 66x26x26 voxels (past the chain's gate), bf16; RAdam at
+# learning rate 0.5, whose first updates follow the gradient.
+DP_OVERRIDES = ["model=diffusion", "data.discard_first_seconds=-1", "model.batch_size=4", "model.dim=8",
+                "model.u_net_levels=1", "model.timesteps=10", "model.compute_dtype=bfloat16", "model.optimizer=radam",
+                "model.learning_rate=0.5", "model.lr_decay=exp", "model.min_learning_rate=5e-3",
+                "trainer.render_plots=false"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cards", [1, 2], ids=["gloo-shared-card", "nccl-two-cards"])
+def test_two_rank_train_steps_on_gpu(tmp_path, cards):
+    """Two ranks (``tests/_torch_dist_worker.py``) sharing card 0 over gloo,
+    or on cards 0 and 1 over NCCL, 2 of the 4 rows a rank, 2 train steps
+    against the same steps in one process on card 0: every rank launched
+    the chain kernels on its card, the ranks' parameters are bit-equal, and
+    the losses and each leaf's change agree with one process's at the bf16
+    rule (rtol 0.06, atol 0.03 x the leaf's and x all leaves' largest
+    change)."""
+    from _torch_dist_worker import JOBS, run_ranks
+
+    from generative_turbulence_tpu_torch.data.synthetic import generate_synthetic_dataset
+
+    _needs_card()
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} cards; this machine has {torch.cuda.device_count()}")
+    root = generate_synthetic_dataset(tmp_path / "data", n_train_cases=1, n_val_cases=1, n_test_cases=0, n_frames=8,
+                                      cell_counts=(64, 24, 24), format="npyd")
+    spec = dict(device="cuda", steps=2,
+                runs={"diffusion": DP_OVERRIDES + [f"data.root={root}", f"trainer.out_dir={tmp_path / 'run'}"]})
+    one = JOBS["family_steps"](spec)["diffusion"]
+    # One card visible to both ranks makes them share it.
+    env = {"CUDA_VISIBLE_DEVICES": "0"} if cards == 1 else None
+    results = run_ranks("family_steps", spec, tmp_path, timeout_s=300, env=env)
+    for rank, (code, out, log) in enumerate(results):
+        assert code == 0 and "error" not in out, f"rank {rank}:\n{log[-4000:]}"
+    r0, r1 = (out["diffusion"] for _, out, _ in results)
+    if cards == 1:
+        assert "backend gloo, card shared by the host ranks" in results[0][2]
+        assert r0["device"] == r1["device"] == "cuda:0"
+    else:
+        assert "backend nccl" in results[0][2] and (r0["device"], r1["device"]) == ("cuda:0", "cuda:1")
+    assert r0["rows"] == r1["rows"] == [2, 2] and one["rows"] == [4, 4] and one["device"] == "cuda:0"
+    for r in (r0, r1, one):
+        assert all(r["launches"][name] > 0 for name in ("conv3x3x3_stats", "conv3x3x3_stats_silu_in", "affine_silu"))
+    assert r0["launches"] == r1["launches"] == one["launches"]
+    assert all(np.array_equal(r1["params"][k], v) for k, v in r0["params"].items())
+    np.testing.assert_allclose(r0["losses"], one["losses"], rtol=0.06, atol=0.03)
+    start = one["start"]
+    changes = {k: (r0["params"][k] - start[k], one["params"][k] - start[k]) for k in start}
+    floor = 0.03 * max(np.abs(w).max() for _, w in changes.values())
+    for name, (g, w) in changes.items():
+        np.testing.assert_allclose(g, w, rtol=0.06, atol=0.03 * np.abs(w).max() + floor, err_msg=name)
+    g, w = (np.concatenate([c[i].ravel() for c in changes.values()]) for i in (0, 1))
+    assert np.corrcoef(g, w)[0, 1] > 0.999

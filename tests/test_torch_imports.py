@@ -43,6 +43,7 @@ def test_port_imports_no_jax_flax_h5py():
         "toolchain.import_ckpt", "scripts", "scripts._common", "scripts.eval_ckpt", "scripts.evaluate_runtime",
         "scripts.sample_metrics", "scripts.evaluate_dataset", "scripts.evaluate_from_initial",
         "scripts.evaluate_with_precision", "scripts.sampler_sweep", "scripts.import_checkpoint",
+        "parallel", "parallel.distributed", "parallel.mesh",
     )} <= set(names.split())
     assert banned == "BANNED []"
 

@@ -338,15 +338,26 @@ def test_profile_steps_write_a_trace(tiny_root, tmp_path):
     assert any(e.get("name") == "train/loss" for e in trace["traceEvents"])
 
 
-def test_sharded_validation_over_ranks_is_refused(tiny_root, tmp_path, monkeypatch):
-    """The diagnostics' cross-rank merge is not ported: a validation with
-    ``data.shard_eval`` over more than one rank raises rather than return
-    one rank's values."""
-    from generative_turbulence_tpu_torch.training import loop as tloop
+def test_sharded_validation_over_ranks_is_refused(tiny_root, tmp_path):
+    """No longer refused: a validation with ``data.shard_eval`` on 2 gloo
+    ranks, where rank 0 owns the one val case and rank 1 none, returns on
+    both ranks the merged metrics of the 1-process validation, the
+    diagnostics (computed on rank 0) among them."""
+    from _torch_dist_worker import JOBS, run_ranks
 
-    monkeypatch.setattr(tloop, "process_rank_and_world", lambda: (0, 2))
-    with pytest.raises(NotImplementedError, match="cross-rank merge"):
-        fit(tiny_root, tmp_path, "data.shard_eval=true")
+    extra = ("model.ema_decay=0.9",)
+    spec = dict(overrides=base_overrides(tiny_root, tmp_path / "run", *extra, "data.shard_eval=true"))
+    results = run_ranks("validate", spec, tmp_path)
+    assert all(code == 0 for code, _, _ in results), [log[-3000:] for _, _, log in results]
+    (_, r0, _), (_, r1, _) = results
+    one = JOBS["validate"](dict(overrides=base_overrides(tiny_root, tmp_path / "one", *extra)))["metrics"]
+    assert r0["store_cases"] == ["case-val-00"] and r1["store_cases"] == []
+    merged = {k: v for k, v in one.items() if not k.startswith("val/sample-")}
+    assert "val/eps-loss-ema-t3" in merged and "val/case-val-00/tke" in merged
+    for metrics in (r0["metrics"], r1["metrics"]):
+        assert {k for k in metrics if not k.startswith("val/sample-")} == merged.keys()
+        for k, v in merged.items():
+            assert metrics[k] == pytest.approx(v, rel=1e-5, abs=1e-8), k
 
 
 @pytest.mark.parametrize("precision, tf32", [("high", True), ("highest", False)])
