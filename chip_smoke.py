@@ -140,6 +140,29 @@ Run from the repository root:  python3 chip_smoke.py
    rank: backend, device, step ms, all-reduce ms of the gradients' bytes,
    peak memory; ``shared_card``: two ranks on one card are no scaling
    figure).
+6f. Study scripts, on what 6c-6e leave behind, through the entry points'
+   ``main`` (each timed, its peak memory and launches kept):
+   ``profile_fwd`` at the bench workload (its own shapes case, dim 32, 4
+   levels, batch 8, bf16) in ``--mode fwd --iters 3`` and ``--mode ddim
+   --probe 2 --iters 1`` (checked: 4 launches of each chain kernel per U-Net
+   evaluation, the warm-up call's included; the categories add up to the
+   kernels' total within 1%; chain conv time above 0; its ms per evaluation
+   printed beside phase 4's); ``trivial_baselines`` on 6e's two val cases
+   (8 frames each), the card against ``--device cpu`` (rtol 1e-4) and its
+   smoothing of one frame against scipy's ``gaussian_filter`` (rtol 1e-4);
+   ``degenerate_baselines`` at 4 samples, the card against the CPU (rtol
+   1e-3; the mean baseline's ``max-mean-tke-pos``, the argmax of a profile
+   that is 0 in exact arithmetic, printed beside the CPU's, not compared);
+   ``calibrate_sinkhorn`` over 4 regions of 4 samples at reg 0.02 x 300 and
+   0.005 x 1200 (each within 15% of the exact EMD); ``tke_profile`` on 6d's
+   ``eval_ckpt`` store, the card against the CPU (rtol 1e-4, equal
+   argmaxes); ``summarize_run`` of 6c's three runs, ``diagnose_trajectory``
+   of its diffusion run, ``compare_runs`` over the three (3 model rows,
+   the degenerate baselines' line); ``sweep --slurm`` (its command lines
+   name the port's module); one real ``sweep`` combination in a process of
+   its own: the paper's run for 2 steps and a DDIM-2 validation, which
+   leaves its ``metrics.jsonl``.  Prints one ``study_scripts`` JSON line
+   first among the result lines.
 7. Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
    Every kernel's entry has its time, its bound (``bound_ms``: the larger of
    its bytes over the memory rate and its operations over the peak rate of
@@ -149,7 +172,8 @@ Run from the repository root:  python3 chip_smoke.py
    main path (``launches_by_path``: per sampler run, per train step on
    the train paths, per ``eval_step`` on the eval paths, per Trainer step
    and validation on the Trainer's, and per val batch of ``eval_ckpt`` and
-   per entry point of phase 6d, per rank per step of phase 6e).
+   per entry point of phase 6d, per rank per step of phase 6e, and per
+   mode and per U-Net evaluation of phase 6f's ``profile_fwd``).
 
 Any failure exits non-zero before the last line.
 
@@ -276,18 +300,6 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-# Kernel groups of a forward's profile, by the first name fragment that
-# matches; any other kernel is "other elementwise, copies, norms".
-PROFILE_GROUPS = [
-    ("chain convs", ("conv3x3x3_kernel",)),
-    ("affine_silu", ("affine_silu_kernel",)),
-    ("flash_attention", ("flash_attn_",)),
-    ("upsample_trilinear3d", ("upsample",)),
-    ("replicate pad", ("replication_pad",)),
-    ("cuDNN/CUTLASS convs and GEMMs", ("conv", "gemm", "cutlass", "xmma", "cudnn", "nvjet", "sm90_")),
-]
-
-
 def profile_forwards(torch, label: str, fn, n: int = 3) -> dict:
     """torch.profiler over ``n`` calls of fn (one U-Net forward each, after a
     warm-up): wall time per forward (host clock, synchronised), device busy
@@ -295,6 +307,8 @@ def profile_forwards(torch, label: str, fn, n: int = 3) -> dict:
     by group, launches and peak memory per forward.  Logged and returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from generative_turbulence_tpu_torch.scripts.profile_fwd import device_summary
 
     fn()
     torch.cuda.synchronize()
@@ -315,24 +329,6 @@ def profile_forwards(torch, label: str, fn, n: int = 3) -> dict:
     row.update(device_summary(events, wall, n))
     log(f"  profile {label}: {json.dumps(row)}")
     return row
-
-
-def device_summary(events, wall: float, n: int) -> dict:
-    """Per call: device busy time (the union of the kernels' intervals), its
-    idle share of ``wall`` (ms per call), and kernel time by group."""
-    busy, end = 0.0, float("-inf")
-    for e in sorted(events, key=lambda e: e.time_range.start):
-        start = max(e.time_range.start, end)
-        if e.time_range.end > start:
-            busy += e.time_range.end - start
-        end = max(end, e.time_range.end)
-    groups = {name: 0.0 for name, _ in PROFILE_GROUPS}
-    groups["other elementwise, copies, norms"] = 0.0
-    for e in events:
-        group = next((name for name, keys in PROFILE_GROUPS if any(k in e.name for k in keys)),
-                     "other elementwise, copies, norms")
-        groups[group] += (e.time_range.end - e.time_range.start) / 1e3 / n
-    return {"busy_ms": busy / 1e3 / n, "idle_share": 1 - busy / 1e3 / n / wall, "kernel_ms": groups}
 
 
 def paired_ratio(torch, fn_a, fn_b, rounds: int) -> float:
@@ -1186,6 +1182,8 @@ def profile_train_step(torch, label: str, fn) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from generative_turbulence_tpu_torch.scripts.profile_fwd import device_summary
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1792,15 +1790,37 @@ def turbdiff_checkpoint(torch, ckpt_dir: Path, path: Path) -> dict:
     return weights
 
 
+def entry_point_step(torch, ck, row: dict, name: str, main, argv, device="cuda", **kwargs):
+    """``main(argv)`` of an entry point (with ``--device`` where ``device`` is
+    given) with its standard output kept (the scripts print their JSON
+    there), timed on the host clock with the card synchronised; its seconds,
+    peak memory and launches go into ``row``."""
+    import gc
+    import io
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    tic = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        result = main([*map(str, argv), *(["--device", device] if device else [])], **kwargs)
+    torch.cuda.synchronize()
+    row["seconds"][name] = time.perf_counter() - tic
+    row["peak_gib"][name] = torch.cuda.max_memory_allocated() / 2**30
+    row["launches"][name] = dict(ck.LAUNCH_COUNTS)
+    log(f"  {name}: {row['seconds'][name]!r} s, peak {row['peak_gib'][name]!r} GiB, launches "
+        f"{row['launches'][name]}")
+    return result
+
+
 def checkpoint_eval_phase(torch, ck, root: Path, smi: str) -> tuple:
     """Phase 6d: eval_ckpt, sample_metrics, the import round trip,
     evaluate_runtime, evaluate_with_precision, sampler_sweep,
     evaluate_from_initial and evaluate_dataset through their ``main`` on the
     card.  Returns the launches of each step that launches and the
     ``checkpoint_eval`` JSON row."""
-    import gc
-    import io
-
     import numpy as np
 
     from generative_turbulence_tpu_torch.data.schema import read_metadata
@@ -1820,25 +1840,7 @@ def checkpoint_eval_phase(torch, ck, root: Path, smi: str) -> tuple:
     log(f"[6d] checkpoint evaluation on {ckpt} (phase 6c's paper run, EMA), DDIM-{CKPT_EVAL_DDIM_STEPS} for "
         f"eval_ckpt and evaluate_runtime, DDIM-{CKPT_EVAL_SHORT_STEPS} for the rest")
 
-    def step(name: str, main, argv, **kwargs):
-        """``main(argv)`` with its standard output kept (the scripts print
-        their JSON there), timed on the host clock with the card
-        synchronised, its peak memory and its launches."""
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ck.reset_launch_counts()
-        tic = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()):
-            result = main([*map(str, argv), "--device", "cuda"], **kwargs)
-        torch.cuda.synchronize()
-        row["seconds"][name] = time.perf_counter() - tic
-        row["peak_gib"][name] = torch.cuda.max_memory_allocated() / 2**30
-        row["launches"][name] = dict(ck.LAUNCH_COUNTS)
-        log(f"  {name}: {row['seconds'][name]!r} s, peak {row['peak_gib'][name]!r} GiB, launches "
-            f"{row['launches'][name]}")
-        return result
+    step = functools.partial(entry_point_step, torch, ck, row)
 
     def finite(values: dict, what: str, keys=None) -> None:
         bad = {k: v for k, v in values.items() if (keys is None or k in keys) and not math.isfinite(v)}
@@ -2265,6 +2267,222 @@ def data_parallel_phase(torch, ck, root: Path, smi: str) -> tuple:
     return launches, row
 
 
+# Phase 6f, the study scripts: the port's study entry points of
+# generative_turbulence_tpu_torch/scripts on what phases 6c-6e leave behind
+# (6e's dataset with its two val cases, 6c's runs, 6d's eval_ckpt store).
+# profile_fwd at the bench workload (its own shapes case, batch 8, bf16):
+# 3 forwards, and one DDIM call of 2 steps, each after one warm-up call.
+PROFILE_RUNS = {"fwd": ["--mode", "fwd", "--iters", "3"], "ddim": ["--mode", "ddim", "--probe", "2", "--iters", "1"]}
+TRIVIAL_RTOL = 1e-4  # the card against the CPU, and against scipy's gaussian_filter
+TRIVIAL_FRAMES = 8
+DEGENERATE_RTOL = 1e-3  # the sample metrics' tolerance (tests/test_torch_eval.py)
+DEGENERATE_SAMPLES = 4
+# The mean baseline's samples are one flow repeated, so its TKE profile is 0
+# in exact arithmetic and its max-mean-tke-pos the argmax of rounding noise
+# in the mean over the samples: at 8 samples 7225.0 on the card (an exact
+# mean, a zero profile, the argmax at x = 24) and 900.0 on the CPU (H100
+# 80GB HBM3, 700 W).  Those values are printed, not compared.
+ILL_POSED = ("mean", "max-mean-tke-pos")
+TKE_PROFILE_RTOL = 1e-4
+CALIBRATION_SWEEP = "0.02:300,0.005:1200"  # the JAX script's default, then the metric's own setting
+STUDY_FAMILIES = ("diffusion", "tfnet", "dilresnet")
+# One real sweep combination: the paper's run for 2 steps and one validation
+# (its sampler cut to DDIM-2), in a process of its own.
+STUDY_SWEEP_RUN = TRAINER_RUNS["diffusion"] + TRAINER_CUTS + [
+    "trainer.max_steps=2", "trainer.max_epochs=1", "trainer.log_every_n_steps=1", "model.ddim_steps=2"]
+STUDY_SWEEP_TIMEOUT_S = 300
+
+
+def worst_rel_diff(got, want) -> float:
+    """The largest relative difference between the numbers of two nested
+    dicts/lists of one structure (0 where both are 0)."""
+    if isinstance(want, dict):
+        check(isinstance(got, dict) and got.keys() == want.keys(), f"keys {sorted(got)} vs {sorted(want)}")
+        return max((worst_rel_diff(got[k], want[k]) for k in want), default=0.0)
+    if isinstance(want, list):
+        check(isinstance(got, list) and len(got) == len(want), f"lengths {len(got)} vs {len(want)}")
+        return max((worst_rel_diff(a, b) for a, b in zip(got, want)), default=0.0)
+    if want is None or isinstance(want, (str, bool)):
+        check(got == want, f"{got!r} vs {want!r}")
+        return 0.0
+    check(math.isfinite(got) and math.isfinite(want), f"not finite: {got!r} vs {want!r}")
+    return abs(got - want) / abs(want) if want else abs(got)
+
+
+def study_scripts_phase(torch, ck, root: Path, smi: str, unet_fwd_ms: float) -> tuple:
+    """Phase 6f: profile_fwd, trivial_baselines, degenerate_baselines,
+    calibrate_sinkhorn, tke_profile, summarize_run, diagnose_trajectory,
+    compare_runs and sweep through their entry points on the card.  Returns
+    profile_fwd's launches by mode and the ``study_scripts`` JSON row."""
+    import numpy as np
+    from scipy.ndimage import gaussian_filter
+
+    from generative_turbulence_tpu_torch.data.schema import CaseRepository
+    from generative_turbulence_tpu_torch.data.variables import Variable
+    from generative_turbulence_tpu_torch.scripts import (
+        calibrate_sinkhorn, compare_runs, degenerate_baselines, diagnose_trajectory, profile_fwd, summarize_run,
+        sweep, tke_profile, trivial_baselines,
+    )
+
+    tic = time.perf_counter()
+    out = root / "study"
+    out.mkdir()
+    row = {"seconds": {}, "peak_gib": {}, "launches": {}, "profile_fwd": {}, "values": {},
+           "phase_4_unet_evaluation_ms": unet_fwd_ms}
+    log(f"[6f] study scripts on phases 6c-6e's dataset ({', '.join(p.name for p in sorted((root / 'val').iterdir()))}), "
+        "runs and store")
+    step = functools.partial(entry_point_step, torch, ck, row)
+
+    # 1. profile_fwd: the chain kernels 4 times per U-Net evaluation, the
+    # categories adding up to the kernels' total.
+    launches = {}
+    for mode, argv in PROFILE_RUNS.items():
+        name = f"profile_fwd_{mode}"
+        result = step(name, profile_fwd.main, [*argv, "--batch", BATCH, "--dtype", "bfloat16",
+                                              "--out", out / f"profile-{mode}.json"])
+        per_call = result["probe"] if mode == "ddim" else 1
+        n_unet = result["iters"] * per_call
+        evaluations = n_unet + per_call  # the warm-up call counts too
+        counts = launches[mode] = row["launches"][name]
+        want = dict({k: evaluations * len(ENGAGED_BLOCKS) for k in CHAIN_KERNELS}, flash_attention=0, conv3d_3x3=0)
+        check(counts == want, f"{name}: launches {counts}, expected {want} ({evaluations} U-Net evaluations)")
+        entry = next((v for v in result.values() if isinstance(v, dict)), None)
+        check(entry is not None, f"{name}: no device entry in {result}")
+        total = sum(c["ms_per_eval"] for c in entry["categories"]) * n_unet
+        groups = {c["category"]: c["ms_per_eval"] for c in entry["categories"]}
+        check(abs(total - entry["total_ms"]) <= 0.01 * entry["total_ms"],
+              f"{name}: the categories add up to {total} ms, the kernels to {entry['total_ms']} ms")
+        check(groups.get("chain convs", 0.0) > 0, f"{name}: no chain conv time in {groups}")
+        row["profile_fwd"][mode] = {
+            "iters": result["iters"], "unet_evaluations": n_unet, "wall_s": result["wall_s"],
+            "ms_per_unet_incl_host": result["ms_per_unet_incl_host"],
+            "device_ms_per_eval": entry["total_ms"] / n_unet, "busy_ms_per_eval": entry["busy_ms_per_eval"],
+            "idle_share": entry["idle_share"], "categories": entry["categories"], "top_events": entry["top_events"][:8],
+            "launches_per_unet_evaluation": {k: v / evaluations for k, v in counts.items()}}
+        log(f"    {mode}: {len(ENGAGED_BLOCKS)} launches per chain kernel per U-Net evaluation ({evaluations} evaluations, as expected); "
+            f"{entry['total_ms'] / n_unet!r} ms of kernels and {result['ms_per_unet_incl_host']!r} ms of wall per "
+            f"evaluation (phase 4: {unet_fwd_ms!r} ms by CUDA events); idle share {entry['idle_share']!r}; "
+            f"{json.dumps(groups)}")
+
+    # 2. trivial_baselines, the card against the CPU and its smoothing
+    # against scipy on one frame.
+    card = step("trivial_baselines", trivial_baselines.main, [root, "--frames", TRIVIAL_FRAMES])
+    cpu = step("trivial_baselines_cpu", trivial_baselines.main, [root, "--frames", TRIVIAL_FRAMES], device="cpu")
+    rel = worst_rel_diff(card, cpu)
+    check(rel <= TRIVIAL_RTOL, f"trivial_baselines: the card off the CPU by {rel} (rtol {TRIVIAL_RTOL})")
+    repo = CaseRepository([root / "val" / "case-val-00" / "data.npyd"], (Variable.U,))
+    meta = repo.read_metadata(0)
+    X, Y, Z = (int(c) for c in meta.cell_counts)
+    dense = np.zeros((1, X * Y * Z, 3), np.float32)
+    dense[:, meta.cell_idx] = repo.read(0, [0]).fields[Variable.U]
+    dense = dense.reshape(1, X, Y, Z, 3)
+    got = trivial_baselines.gaussian_smooth(torch.as_tensor(dense, device="cuda"), 1.0).cpu().numpy()
+    want = gaussian_filter(dense, sigma=(0, 1.0, 1.0, 1.0, 0))
+    scipy_err = float(np.abs(got - want).max())
+    check(np.allclose(got, want, rtol=TRIVIAL_RTOL, atol=0), f"gaussian_smooth on the card off scipy by {scipy_err}")
+    log(f"    the card within {rel!r} of the CPU (rtol {TRIVIAL_RTOL}); the smoothing of one frame "
+        f"({X}x{Y}x{Z}x3) against scipy's gaussian_filter: max abs error {scipy_err!r}; {json.dumps(card['summary'])}")
+    row["values"].update(trivial_baselines=card["summary"], trivial_card_vs_cpu=rel, smoothing_vs_scipy=scipy_err)
+
+    # 3. degenerate_baselines, the card against the CPU.
+    baselines_json = out / "degenerate-baselines.json"
+    argv = [root, "--samples", DEGENERATE_SAMPLES]
+    card = step("degenerate_baselines", degenerate_baselines.main, [*argv, "--out", baselines_json])
+    cpu = step("degenerate_baselines_cpu", degenerate_baselines.main, [*argv, "--out", out / "degenerate-cpu.json"],
+               device="cpu")
+
+    def held(metrics: dict) -> dict:
+        return {name: {k: v for k, v in values.items() if not (name == ILL_POSED[0] and k.endswith(ILL_POSED[1]))}
+                for name, values in metrics.items()}
+
+    rel = worst_rel_diff(held(card), held(cpu))
+    check(rel <= DEGENERATE_RTOL, f"degenerate_baselines: the card off the CPU by {rel} (rtol {DEGENERATE_RTOL})")
+    ill_posed = {k: [v, cpu[ILL_POSED[0]][k]] for k, v in card[ILL_POSED[0]].items() if k.endswith(ILL_POSED[1])}
+    check(all(math.isfinite(v) for pair in ill_posed.values() for v in pair), f"not finite: {ill_posed}")
+    tkes = {name: card[name][f"{name}/tke"] for name in card}
+    log(f"    the card within {rel!r} of the CPU (rtol {DEGENERATE_RTOL}); the mean baseline's argmax of a zero "
+        f"profile, not compared (card, CPU): {json.dumps(ill_posed)}; tke {json.dumps(tkes)}")
+    row["values"].update(degenerate_baselines_tke=tkes, degenerate_card_vs_cpu=rel,
+                         degenerate_mean_max_mean_tke_pos_card_cpu=ill_posed)
+
+    # 4. calibrate_sinkhorn over 4 regions of 4 samples.
+    cal = step("calibrate_sinkhorn", calibrate_sinkhorn.main,
+               [root, "--case", "val/case-val-00", "--max-regions", 4, "--samples", 4, "--workers", 1,
+                "--sweep", CALIBRATION_SWEEP, "--out", out / "sinkhorn-calibration.json"])
+    for entry in cal["sinkhorn"]:
+        check(entry["relative_error"] is not None and entry["relative_error"] <= SINKHORN_REL_TOL,
+              f"calibrate_sinkhorn: reg {entry['reg']} iters {entry['iters']} off the exact EMD by "
+              f"{entry['relative_error']} (bound {SINKHORN_REL_TOL})")
+    log(f"    exact {cal['exact']['wasserstein']!r} ({cal['exact']['seconds']!r} s); "
+        + "; ".join(f"reg {e['reg']} x {e['iters']}: {e['wasserstein']!r}, relative error {e['relative_error']!r} "
+                    f"({e['seconds']!r} s)" for e in cal["sinkhorn"]) + f" (bound {SINKHORN_REL_TOL})")
+    row["values"]["calibrate_sinkhorn"] = cal
+
+    # 5. tke_profile on 6d's eval_ckpt store, the card against the CPU.
+    store = root / "checkpoint_eval" / "samples.npyd"
+    card = step("tke_profile", tke_profile.main, [store, root / "val", "--out", out / "tke-profile"])
+    cpu = step("tke_profile_cpu", tke_profile.main, [store, root / "val", "--out", out / "tke-profile-cpu"],
+               device="cpu")
+    rel = worst_rel_diff({c: {k: v for k, v in d.items() if k in ("samples", "data")} for c, d in card.items()},
+                         {c: {k: v for k, v in d.items() if k in ("samples", "data")} for c, d in cpu.items()})
+    argmaxes = {c: [d["argmax_samples"], d["argmax_data"], d["gt_pos"]] for c, d in card.items()}
+    check(card and rel <= TKE_PROFILE_RTOL and argmaxes == {c: [d["argmax_samples"], d["argmax_data"], d["gt_pos"]]
+                                                             for c, d in cpu.items()},
+          f"tke_profile: the card off the CPU by {rel}, argmaxes {argmaxes} vs the CPU's")
+    log(f"    the profiles within {rel!r} of the CPU's, equal argmaxes (samples, data, gt): {argmaxes}")
+    row["values"].update(tke_profile_argmaxes=argmaxes, tke_profile_card_vs_cpu=rel)
+
+    # 6. The host tools on 6c's runs.
+    summaries = {}
+    for family in STUDY_FAMILIES:
+        summaries[family] = step(f"summarize_run_{family}", summarize_run.main,
+                                 [root / "runs" / family, out / "summaries" / family], device=None)
+    trajectory = step("diagnose_trajectory", diagnose_trajectory.main,
+                      [root / "runs" / "diffusion", "--out", out / "trajectory"], device=None)
+    check(len(trajectory["validations"]) == len(summaries["diffusion"]["trajectory"]) > 0
+          and (out / "trajectory.json").is_file(), f"diagnose_trajectory: {len(trajectory['validations'])} validations")
+    comparison = step("compare_runs", compare_runs.main,
+                      [*(f"{f}={out / 'summaries' / f}" for f in STUDY_FAMILIES), "--out", out / "comparison",
+                       "--baselines", baselines_json], device=None)
+    models = [r["model"] for r in comparison["models"]]
+    check(models == list(STUDY_FAMILIES) and set(comparison["degenerate_baselines_mean_val_tke"]) == set(tkes)
+          and (out / "comparison.md").is_file(), f"compare_runs: models {models}, baselines "
+          f"{comparison['degenerate_baselines_mean_val_tke']}")
+    log(f"    compare_runs: {len(models)} model rows, best val/tke "
+        f"{json.dumps({r['model']: r['best_val_tke'] for r in comparison['models']})}")
+    step("sweep_slurm", sweep.main, ["--slurm", "--sweep", "trainer.seed=0,1", "--out", out / "slurm",
+                                     f"data.root={root}"])
+    lines = (out / "slurm" / "sweep-cmds.txt").read_text().splitlines()
+    check(len(lines) == 2 and all(f"-m {sweep.MODULE} --device cuda" in line for line in lines)
+          and (out / "slurm" / "sweep.sbatch").is_file(), f"sweep --slurm wrote {lines}")
+
+    # 7. One real sweep combination: a Trainer run of 2 steps on the card.
+    cmd = [sys.executable, "-m", "generative_turbulence_tpu_torch.scripts.sweep", "--sweep", "trainer.seed=0",
+           "--out", str(out / "sweep"), "--device", "cuda", *STUDY_SWEEP_RUN, f"data.root={root}"]
+    t0 = time.perf_counter()
+    with open(out / "sweep-log.txt", "w+") as log_file:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            code = proc.wait(timeout=STUDY_SWEEP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            code = "timeout"
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        log_file.seek(0)
+        check(code == 0, f"sweep exited {code}:\n{log_file.read()[-6000:]}")
+    row["seconds"]["sweep_run"] = time.perf_counter() - t0
+    metrics_file = out / "sweep" / "0" / "metrics.jsonl"
+    records = [json.loads(line) for line in metrics_file.read_text().splitlines()] if metrics_file.is_file() else []
+    steps = [r["step"] for r in records if "train/loss" in r]
+    check(steps == [1, 2] and any("val/tke" in r for r in records), f"sweep run: train steps {steps} in {metrics_file}")
+    log(f"  sweep_run: {row['seconds']['sweep_run']!r} s (a process of its own); {metrics_file.relative_to(root)} "
+        f"holds train steps {steps} and a validation")
+    row["phase_s"] = time.perf_counter() - tic
+    return launches, row
+
+
 def multi_card_main() -> int:
     """``python3 chip_smoke.py --multi-card``, on a machine with several
     cards: phase 6e's paper run at batch 2 x cards, in one process and on
@@ -2281,7 +2499,7 @@ def multi_card_main() -> int:
 
     smi = nvidia_smi()
     n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    log(f"[6f] cards: {n_cards}; {smi}")
+    log(f"[multi-card] cards: {n_cards}; {smi}")
     if n_cards < 2:
         log("error: --multi-card needs at least two cards")
         return 1
@@ -2292,7 +2510,7 @@ def multi_card_main() -> int:
     try:
         with tempfile.TemporaryDirectory() as tmp:
             root = Path(tmp)
-            write_eval_dataset(root, TRAINER_FRAMES, "6f")
+            write_eval_dataset(root, TRAINER_FRAMES, "multi-card")
             shutil.copytree(root / "val" / DP_VAL_CASES[0], root / "val" / DP_VAL_CASES[1])
             extra = [f"model.batch_size={2 * n_cards}"]
             runs = {"single": ([], {}),
@@ -2375,14 +2593,16 @@ def main() -> int:
             log(f"  phase 6d took {ckpt_rows['phase_s']!r} s")
             dp_launches, dp_rows = data_parallel_phase(torch, ck, Path(tmp), smi)
             log(f"  phase 6e took {dp_rows['phase_s']!r} s")
+            profile_launches, study_rows = study_scripts_phase(torch, ck, Path(tmp), smi, timings["fwd_ms"])
+            log(f"  phase 6f took {study_rows['phase_s']!r} s")
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1
     timings.update(timings2)
     profiles += [train_profile4, train_profile2]
     # Launches on the main paths (the 4-level and the 2-level sampler runs,
-    # train steps, eval steps, the Trainer's runs and the checkpoint
-    # evaluation's entry points), each counted from 0 just before the path
+    # train steps, eval steps, the Trainer's runs, the checkpoint
+    # evaluation's entry points and profile_fwd), each counted from 0 just before the path
     # runs; the train paths per step, the eval paths per eval_step, the
     # Trainer per train step and per validation, eval_ckpt per val batch.
     diffusion = trainer_rows["diffusion"]
@@ -2391,7 +2611,8 @@ def main() -> int:
         entry["launches"] = (launches4[name] + launches2[name] + train_launches4[name] + train_launches2[name]
                              + sum(counts[name] for counts in eval_launches.values()) + trainer_launches[name]
                              + sum(counts[name] for counts in ckpt_launches.values())
-                             + sum(counts[name] for counts in dp_launches["gloo_2"] + dp_launches["nccl_1"]))
+                             + sum(counts[name] for counts in dp_launches["gloo_2"] + dp_launches["nccl_1"])
+                             + sum(counts[name] for counts in profile_launches.values()))
         entry["launches_by_path"] = {
             "4_levels": launches4[name], "2_levels": launches2[name],
             "train_4_levels": train4["launches_per_step"][name],
@@ -2406,8 +2627,13 @@ def main() -> int:
             "dp_gloo_2_per_rank_per_step": [[c[name] for c in rank] for rank in dp_launches["per_step"]["gloo_2"]],
             "dp_nccl_1_per_step": [c[name] for c in dp_launches["per_step"]["nccl_1"][0]],
             "dp_gloo_2_per_rank": [counts[name] for counts in dp_launches["gloo_2"]],
+            "profile_fwd": {mode: counts[name] for mode, counts in profile_launches.items()},
+            "profile_fwd_per_unet_evaluation": {
+                mode: study_rows["profile_fwd"][mode]["launches_per_unet_evaluation"][name]
+                for mode in profile_launches},
         }
     log(f"[7] card: {smi}")
+    print(json.dumps({"study_scripts": study_rows, "card": smi}))
     print(json.dumps({"distributed": dp_rows, "card": smi}))
     print(json.dumps({"checkpoint_eval": ckpt_rows, "card": smi}))
     print(json.dumps({"trainer": trainer_rows, "card": smi}))

@@ -766,3 +766,83 @@ def test_two_rank_train_steps_on_gpu(tmp_path, cards):
         np.testing.assert_allclose(g, w, rtol=0.06, atol=0.03 * np.abs(w).max() + floor, err_msg=name)
     g, w = (np.concatenate([c[i].ravel() for c in changes.values()]) for i in (0, 1))
     assert np.corrcoef(g, w)[0, 1] > 0.999
+
+
+# ---- the study scripts on the card --------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape, sigma", [((2, 194, 50, 50, 3), 1.0), ((1, 13, 5, 9, 2), 3.0),
+                                          ((2, 7, 1, 3, 1), 2.5), ((1, 26, 12, 12, 1), 3.0)])
+def test_gaussian_smooth_on_gpu(shape, sigma):
+    """trivial_baselines' smoothing on the card against scipy's
+    ``gaussian_filter``: the shapes grid, odd axes, and radii past the axis
+    (12 cells over 5, 1 and 12; 10 over 7, 1 and 3)."""
+    from scipy.ndimage import gaussian_filter
+
+    from generative_turbulence_tpu_torch.scripts.trivial_baselines import gaussian_smooth
+
+    _needs_card()
+    a = np.random.default_rng(0).normal(size=shape).astype(np.float32)
+    got = gaussian_smooth(torch.from_numpy(a).cuda(), sigma)
+    assert got.is_cuda and got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), gaussian_filter(a, sigma=(0, sigma, sigma, sigma, 0)), rtol=1e-4,
+                               atol=1e-7)
+
+
+@pytest.mark.gpu
+def test_profile_fwd_workload_on_gpu():
+    """profile_fwd's workload at 66x26x26 voxels (past the chain's gate), dim
+    8, 2 levels, bf16: one forward's chain launches, the same per U-Net
+    evaluation under the profile of both modes, and a category table of the
+    card's kernels that adds up to their total."""
+    from generative_turbulence_tpu_torch.scripts import profile_fwd
+
+    _needs_card()
+    device = torch.device("cuda")
+    w = profile_fwd.build_workload((64, 24, 24), dim=8, levels=2, batch=2, dtype=torch.bfloat16, device=device)
+    ck.reset_launch_counts()
+    with torch.inference_mode():
+        w.forward()
+    torch.cuda.synchronize()
+    per_eval = dict(ck.LAUNCH_COUNTS)
+    assert per_eval["conv3x3x3_stats"] == per_eval["conv3x3x3_stats_silu_in"] == per_eval["affine_silu"] > 0
+    assert per_eval["flash_attention"] == per_eval["conv3d_3x3"] == 0
+    for mode, probe in (("fwd", 8), ("ddim", 3)):
+        fn, n_unet = w.runner(mode, probe)
+        with torch.inference_mode():
+            fn()
+        ck.reset_launch_counts()
+        result = profile_fwd.profile(fn, 2, n_unet, device)
+        assert dict(ck.LAUNCH_COUNTS) == {k: v * 2 * n_unet for k, v in per_eval.items()}, mode
+        entry = result[str(device)]
+        assert isinstance(entry, dict) and entry["name"] == torch.cuda.get_device_name(device)
+        assert sum(c["ms_per_eval"] for c in entry["categories"]) * 2 * n_unet == pytest.approx(entry["total_ms"])
+        assert sum(c["pct"] for c in entry["categories"]) == pytest.approx(100.0)
+        groups = {c["category"]: c["ms_per_eval"] for c in entry["categories"]}
+        assert groups["chain convs"] > 0 and groups["affine_silu"] > 0 and "flash_attention" not in groups
+        assert entry["idle_share"] < 1 and result["ms_per_unet_incl_host"] > 0
+
+
+@pytest.mark.gpu
+def test_tke_profile_on_gpu(npyd_root, tmp_path):
+    """tke_profile of real frames (as samples) on the card against the CPU:
+    the profiles at rtol 1e-4 and the same argmaxes."""
+    from generative_turbulence_tpu_torch.data.schema import CaseRepository, find_data_files
+    from generative_turbulence_tpu_torch.data.variables import Variable
+    from generative_turbulence_tpu_torch.eval.sample_store import SampleStore
+    from generative_turbulence_tpu_torch.scripts import tke_profile
+
+    _needs_card()
+    variables = (Variable.U, Variable.P)
+    repo = CaseRepository(find_data_files(npyd_root / "val"), variables)
+    store = SampleStore(tmp_path / "frames.npyd", variables)
+    store.add_samples(repo.read(0, [0, 2, 4, 5]).stacked_cells(variables), repo.read_metadata(0))
+    got, want = (tke_profile.main([str(tmp_path / "frames.npyd"), str(npyd_root / "val"), "--out",
+                                   str(tmp_path / device / "profile"), "--device", device]) for device in ("cuda", "cpu"))
+    assert list(got) == list(want) == ["case-val-00"]
+    for case, w in want.items():
+        np.testing.assert_allclose(got[case]["samples"], w["samples"], rtol=1e-4)
+        np.testing.assert_allclose(got[case]["data"], w["data"], rtol=1e-4)
+        assert [got[case][k] for k in ("argmax_samples", "argmax_data", "gt_pos")] == [
+            w[k] for k in ("argmax_samples", "argmax_data", "gt_pos")]

@@ -42,8 +42,9 @@ from generative_turbulence_tpu_torch.data.variables import Variable
 from generative_turbulence_tpu_torch.diffusion.schedules import beta_schedule
 from generative_turbulence_tpu_torch.eval.sample_store import SampleStore
 from generative_turbulence_tpu_torch.scripts import (
-    eval_ckpt, evaluate_dataset, evaluate_from_initial, evaluate_runtime, evaluate_with_precision, import_checkpoint,
-    sample_metrics, sampler_sweep,
+    calibrate_sinkhorn, degenerate_baselines, eval_ckpt, evaluate_dataset, evaluate_from_initial, evaluate_runtime,
+    evaluate_with_precision, import_checkpoint, profile_fwd, sample_metrics, sampler_sweep, tke_profile,
+    trivial_baselines,
 )
 from generative_turbulence_tpu_torch.toolchain.from_flax import torch_state_dict_from_flax
 from generative_turbulence_tpu_torch.toolchain.h5_to_npyd import convert_file, convert_tree
@@ -372,6 +373,30 @@ def test_fluct_diagnostics_without_h5py_match_jax(diffusion, npyd_root, tmp_path
         np.testing.assert_allclose(got[key], want[key], rtol=1e-6, err_msg=key)
 
 
+@pytest.mark.parametrize("fmt", ["h5", "npyd"])
+def test_tke_profile_matches_jax(diffusion, fmt, tmp_path, monkeypatch):
+    """The JAX script on its own ``.h5`` store, and the port on that store
+    and on its ``.npyd`` conversion: the profiles at rtol 1e-5, the same
+    argmaxes (past cell 24) and ``gt_pos``, and a JSON file each."""
+    monkeypatch.setattr(sys, "argv", ["tke-profile.py", str(diffusion.jstore), str(diffusion.root / "val"),
+                                      "--out", str(tmp_path / "jax" / "profile"), "--n-data", "4"])
+    jax_script("tke-profile").main()
+    want = json.loads((tmp_path / "jax" / "profile.json").read_text())
+    store = diffusion.jstore if fmt == "h5" else convert_file(diffusion.jstore, tmp_path / "jax-samples.npyd")
+    got = tke_profile.main([str(store), str(diffusion.root / "val"), "--out", str(tmp_path / "port" / "profile"),
+                            "--n-data", "4", "--device", "cpu"])
+    assert json.loads((tmp_path / "port" / "profile.json").read_text()) == got
+    assert list(got) == list(want) == ["case-val-00"]
+    for case, w in want.items():
+        g = got[case]
+        assert len(g["samples"]) == len(g["data"]) == 26
+        np.testing.assert_allclose(g["samples"], w["samples"], rtol=1e-5)
+        np.testing.assert_allclose(g["data"], w["data"], rtol=1e-5)
+        assert (g["argmax_samples"], g["argmax_data"], g["gt_pos"]) == (w["argmax_samples"], w["argmax_data"],
+                                                                        w["gt_pos"])
+        assert g["argmax_samples"] >= 24 and g["gt_pos"] is not None
+
+
 # ---- evaluate_dataset and evaluate_from_initial against JAX ----------------------------
 
 
@@ -437,6 +462,11 @@ ENTRY_POINTS = {
     "evaluate_with_precision": (evaluate_with_precision, ["ckpt"]),
     "sampler_sweep": (sampler_sweep, ["ckpt"]),
     "import_checkpoint": (import_checkpoint, ["turbdiff.ckpt", "out"]),
+    "profile_fwd": (profile_fwd, ["--out", "profile.json"]),
+    "trivial_baselines": (trivial_baselines, ["data"]),
+    "degenerate_baselines": (degenerate_baselines, ["data", "--out", "baselines.json"]),
+    "calibrate_sinkhorn": (calibrate_sinkhorn, ["data", "--out", "calibration.json"]),
+    "tke_profile": (tke_profile, ["samples.npyd", "data/val", "--out", "profile"]),
 }
 
 
