@@ -151,8 +151,8 @@ Run from the repository root:  python3 chip_smoke.py
    (8 frames each), the card against ``--device cpu`` (rtol 1e-4) and its
    smoothing of one frame against scipy's ``gaussian_filter`` (rtol 1e-4);
    ``degenerate_baselines`` at 4 samples, the card against the CPU (rtol
-   1e-3; the mean baseline's ``max-mean-tke-pos``, the argmax of a profile
-   that is 0 in exact arithmetic, printed beside the CPU's, not compared);
+   1e-3; the mean baseline's ``max-mean-tke-pos``, whose TKE profile is 0
+   in exact arithmetic, undefined (NaN) on both);
    ``calibrate_sinkhorn`` over 4 regions of 4 samples at reg 0.02 x 300 and
    0.005 x 1200 (each within 15% of the exact EMD); ``tke_profile`` on 6d's
    ``eval_ckpt`` store, the card against the CPU (rtol 1e-4, equal
@@ -162,6 +162,27 @@ Run from the repository root:  python3 chip_smoke.py
    name the port's module); one real ``sweep`` combination in a process of
    its own: the paper's run for 2 steps and a DDIM-2 validation, which
    leaves its ``metrics.jsonl``.  Prints one ``study_scripts`` JSON line
+   after 6g's.
+6g. OpenFOAM data toolchain, at the full shapes grid: ``generate_shapes
+   <tmp>/shapes --mock-direct --overfit 1 --frames 8`` through its ``main``
+   (the first train shape, 192x48x48 cells at scale 1, every analysis, in
+   ``.npyd``; each of its steps timed: case generation, polyMesh, mock
+   solve and conversion, grid embedding, mean flow, homogeneous regions,
+   max-mean-TKE, statistics; checked: ``data.npyd``, ``mean-flow.npyd``,
+   ``regions.npz``, ``max-mean-tke.npy`` and ``stats.pickle``, no ``.h5``,
+   ``train/`` and ``val/`` linking the same case, the 194x50x50 padded
+   grid); ``validate_dataset --deep`` (``{"n_cases": 1, "failed": {}}``);
+   ``case_analysis --first-turbulent-frame`` on the card and with ``--device
+   cpu`` (the index equal; both log-TKE distance matrices at rtol 2e-4 /
+   atol 2e-5); the paper's run through the training entry point's ``main``
+   on the generated dataset for 2 steps and one validation (DDIM-10,
+   ``data.discard_first_seconds=-1`` keeping the mock frames, no plots;
+   checked: finite losses, finite validation metrics, among them
+   ``val/tke`` from ``mean-flow.npyd`` and ``val/max-mean-tke-pos`` from
+   ``max-mean-tke.npy``, each chain kernel 7 times per step and 4 x 26
+   times in the validation, as in 6c); then ``val/wasserstein`` by Sinkhorn
+   on the card over 8 seeded regions of the generated ``regions.npz`` on the
+   validation's stored samples (finite).  Prints one ``toolchain`` JSON line
    first among the result lines.
 7. Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
    Every kernel's entry has its time, its bound (``bound_ms``: the larger of
@@ -172,8 +193,9 @@ Run from the repository root:  python3 chip_smoke.py
    main path (``launches_by_path``: per sampler run, per train step on
    the train paths, per ``eval_step`` on the eval paths, per Trainer step
    and validation on the Trainer's, and per val batch of ``eval_ckpt`` and
-   per entry point of phase 6d, per rank per step of phase 6e, and per
-   mode and per U-Net evaluation of phase 6f's ``profile_fwd``).
+   per entry point of phase 6d, per rank per step of phase 6e, per
+   mode and per U-Net evaluation of phase 6f's ``profile_fwd``, and per
+   step and per validation of phase 6g's Trainer).
 
 Any failure exits non-zero before the last line.
 
@@ -2278,11 +2300,10 @@ TRIVIAL_FRAMES = 8
 DEGENERATE_RTOL = 1e-3  # the sample metrics' tolerance (tests/test_torch_eval.py)
 DEGENERATE_SAMPLES = 4
 # The mean baseline's samples are one flow repeated, so its TKE profile is 0
-# in exact arithmetic and its max-mean-tke-pos the argmax of rounding noise
-# in the mean over the samples: at 8 samples 7225.0 on the card (an exact
-# mean, a zero profile, the argmax at x = 24) and 900.0 on the CPU (H100
-# 80GB HBM3, 700 W).  Those values are printed, not compared.
-ILL_POSED = ("mean", "max-mean-tke-pos")
+# in exact arithmetic: the port reports its max-mean-tke-pos as undefined
+# (NaN), where the argmax of rounding noise once gave 7225.0 on the card and
+# 900.0 on the CPU.  It must be NaN on both; the rest is compared.
+UNDEFINED = ("mean", "max-mean-tke-pos")
 TKE_PROFILE_RTOL = 1e-4
 CALIBRATION_SWEEP = "0.02:300,0.005:1200"  # the JAX script's default, then the metric's own setting
 STUDY_FAMILIES = ("diffusion", "tfnet", "dilresnet")
@@ -2391,19 +2412,21 @@ def study_scripts_phase(torch, ck, root: Path, smi: str, unet_fwd_ms: float) -> 
     cpu = step("degenerate_baselines_cpu", degenerate_baselines.main, [*argv, "--out", out / "degenerate-cpu.json"],
                device="cpu")
 
-    def held(metrics: dict) -> dict:
-        return {name: {k: v for k, v in values.items() if not (name == ILL_POSED[0] and k.endswith(ILL_POSED[1]))}
+    def defined(metrics: dict) -> dict:
+        return {name: {k: v for k, v in values.items() if not (name == UNDEFINED[0] and k.endswith(UNDEFINED[1]))}
                 for name, values in metrics.items()}
 
-    rel = worst_rel_diff(held(card), held(cpu))
+    rel = worst_rel_diff(defined(card), defined(cpu))
     check(rel <= DEGENERATE_RTOL, f"degenerate_baselines: the card off the CPU by {rel} (rtol {DEGENERATE_RTOL})")
-    ill_posed = {k: [v, cpu[ILL_POSED[0]][k]] for k, v in card[ILL_POSED[0]].items() if k.endswith(ILL_POSED[1])}
-    check(all(math.isfinite(v) for pair in ill_posed.values() for v in pair), f"not finite: {ill_posed}")
+    undefined = {k: [v, cpu[UNDEFINED[0]][k]] for k, v in card[UNDEFINED[0]].items() if k.endswith(UNDEFINED[1])}
+    check(len(undefined) >= 2 and all(math.isnan(v) for pair in undefined.values() for v in pair),
+          f"the mean baseline's {UNDEFINED[1]} (card, CPU): {undefined}, expected NaN (undefined) on both")
     tkes = {name: card[name][f"{name}/tke"] for name in card}
-    log(f"    the card within {rel!r} of the CPU (rtol {DEGENERATE_RTOL}); the mean baseline's argmax of a zero "
-        f"profile, not compared (card, CPU): {json.dumps(ill_posed)}; tke {json.dumps(tkes)}")
+    log(f"    the card within {rel!r} of the CPU (rtol {DEGENERATE_RTOL}), {UNDEFINED[1]} among them; the mean "
+        f"baseline's (one flow repeated) undefined on both (card, CPU): {json.dumps(undefined)}; "
+        f"tke {json.dumps(tkes)}")
     row["values"].update(degenerate_baselines_tke=tkes, degenerate_card_vs_cpu=rel,
-                         degenerate_mean_max_mean_tke_pos_card_cpu=ill_posed)
+                         degenerate_mean_max_mean_tke_pos_card_cpu={k: [None, None] for k in undefined})
 
     # 4. calibrate_sinkhorn over 4 regions of 4 samples.
     cal = step("calibrate_sinkhorn", calibrate_sinkhorn.main,
@@ -2480,6 +2503,201 @@ def study_scripts_phase(torch, ck, root: Path, smi: str, unet_fwd_ms: float) -> 
     log(f"  sweep_run: {row['seconds']['sweep_run']!r} s (a process of its own); {metrics_file.relative_to(root)} "
         f"holds train steps {steps} and a validation")
     row["phase_s"] = time.perf_counter() - tic
+    return launches, row
+
+
+# Phase 6g, the OpenFOAM data toolchain: the port's generate_shapes at the
+# full shapes grid (scale 1: 192x48x48 cells, the first train shape with
+# train/ and val/ linking it, every analysis, .npyd), validate_dataset, the
+# first turbulent frame on the card against the CPU, and the paper's run
+# trained and validated on the generated case through the training entry
+# point.  Cuts: 8 mock frames; the Trainer's validation without the region
+# Wasserstein (the generated regions.npz holds ~1,500 regions, minutes of
+# Sinkhorn), which is computed instead over a seeded subset of its regions
+# on the Trainer's stored samples.
+TOOLCHAIN_FRAMES = 8
+TOOLCHAIN_REGIONS = 8
+TOOLCHAIN_STEPS = 2
+TOOLCHAIN_RUN = TRAINER_RUNS["diffusion"] + TRAINER_CUTS + [
+    f"trainer.max_steps={TOOLCHAIN_STEPS}", "trainer.check_val_every_n_epoch=1000"]
+TOOLCHAIN_STEPS_TIMED = (  # (module, function) of generate_shapes' steps
+    ("generate", "generate_case"), ("boxmesh", "build_polymesh"), ("generate", "mock_solve_direct"),
+    ("convert", "add_grid_embedding"), ("analysis", "mean_flow"), ("analysis", "homogeneous_regions"),
+    ("analysis", "max_mean_tke"), ("analysis", "dataset_stats"))
+F32_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_torch_eval_ops.py
+
+
+def toolchain_phase(torch, ck, root: Path, smi: str) -> tuple:
+    """Phase 6g: ``generate_shapes --mock-direct --overfit 1 --frames 8``,
+    ``validate_dataset --deep``, ``case_analysis --first-turbulent-frame``
+    on the card and on the CPU, then the training entry point's ``main``
+    for 2 steps and one validation on the generated dataset.  Returns the
+    launch counts of the Trainer's run and the ``toolchain`` JSON row."""
+    import importlib
+
+    import numpy as np
+
+    from generative_turbulence_tpu_torch import train
+    from generative_turbulence_tpu_torch.data.schema import FieldStats
+    from generative_turbulence_tpu_torch.eval.metrics import SampleMetricsCollection, WassersteinMetric
+    from generative_turbulence_tpu_torch.scripts import case_analysis, generate_shapes, validate_dataset
+    from generative_turbulence_tpu_torch.toolchain import analysis
+    from generative_turbulence_tpu_torch.training.diffusion_task import DiffusionTask
+    from generative_turbulence_tpu_torch.training.loop import Trainer
+
+    tic = time.perf_counter()
+    data_root = root / "shapes"
+    row = {"seconds": {}, "generate_shapes_s": {}, "peak_gib": {}, "launches": {}, "values": {},
+           "frames": TOOLCHAIN_FRAMES}
+    log(f"[6g] OpenFOAM data toolchain at the full shapes grid: generate_shapes --mock-direct --overfit 1 "
+        f"--frames {TOOLCHAIN_FRAMES} (.npyd), validate_dataset, the first turbulent frame card vs CPU, "
+        f"{TOOLCHAIN_STEPS} Trainer steps and one validation on it")
+    step = functools.partial(entry_point_step, torch, ck, row)
+
+    # 1. generate_shapes, each of its steps timed on the host clock.
+    timers = []
+    for module, name in TOOLCHAIN_STEPS_TIMED:
+        mod = importlib.import_module(f"generative_turbulence_tpu_torch.toolchain.{module}")
+
+        def timed(*args, _fn=getattr(mod, name), _name=name, **kwargs):
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            row["generate_shapes_s"][_name] = row["generate_shapes_s"].get(_name, 0.0) + time.perf_counter() - t0
+            return out
+
+        timers.append(patched(mod, name, timed))
+    with contextlib.ExitStack() as stack:
+        for timer in timers:
+            stack.enter_context(timer)
+        result = step("generate_shapes", generate_shapes.main,
+                      [data_root, "--mock-direct", "--overfit", 1, "--frames", TOOLCHAIN_FRAMES], device=None)
+    (name,) = result["cases"]
+    case = data_root / "cases" / name
+    files = {p.name for p in case.iterdir()}
+    want = {"data.npyd", "mean-flow.npyd", "regions.npz", "max-mean-tke.npy"}
+    check(want <= files and not any(f.endswith(".h5") for f in files) and (data_root / "stats.pickle").is_file(),
+          f"generate_shapes: {sorted(files)} in {case}")
+    links = {split: (data_root / split / name).resolve() for split in ("train", "val")}
+    check(result["splits"] == {"train": [name], "val": [name]} and set(links.values()) == {case.resolve()},
+          f"generate_shapes --overfit 1: splits {result['splits']}, links {links}")
+    data = case / "data.npyd"
+    with open(data / "attrs.json") as f:
+        attrs = json.load(f)
+    u = np.load(data / "data" / "u.npy", mmap_mode="r")
+    counts = np.load(data / "grid" / "cell_counts.npy").tolist()
+    n_regions = int(np.load(case / "regions.npz")["assignments"].max() + 1)
+    check(u.shape[0] == TOOLCHAIN_FRAMES and counts == [194, 50, 50] and "physical" in attrs,
+          f"generate_shapes: u {u.shape}, padded grid {counts}")
+    row["values"].update(case=name, n_cells=int(u.shape[1]), padded_grid=counts, n_regions=n_regions,
+                         max_mean_tke=float(np.load(case / "max-mean-tke.npy")),
+                         data_npyd_bytes=sum(p.stat().st_size for p in data.rglob("*") if p.is_file()))
+    log(f"    {name}: {u.shape[1]} cells, {u.shape[0]} frames, padded grid {counts}, {n_regions} regions, "
+        f"max-mean-tke at x = {row['values']['max_mean_tke']!r}; train/ and val/ link the case; "
+        f"steps {json.dumps(row['generate_shapes_s'])}")
+
+    # 2. validate_dataset --deep.
+    result = step("validate_dataset", validate_dataset.main, [data_root, "--deep"], device=None)
+    check(result == {"n_cases": 1, "failed": {}} and validate_dataset.exit_code(result) == 0,
+          f"validate_dataset: {result}")
+
+    # 3. The first turbulent frame on the card and on the CPU: the index
+    # equal, both distance matrices at the f32 tolerance.
+    distances = {}
+    for device in ("cuda", "cpu"):
+        def recorded(*args, _fn=analysis.turbulent_frame_distances, _device=device, **kwargs):
+            distances[_device] = _fn(*args, **kwargs)
+            return distances[_device]
+
+        with patched(analysis, "turbulent_frame_distances", recorded):
+            frame = step(f"first_turbulent_frame_{device}", case_analysis.main, [data, "--first-turbulent-frame"],
+                         device=device)["first_turbulent_frame"]
+        check(frame == distances[device]["first"], f"case_analysis on {device}: {frame}, {distances[device]['first']}")
+    card, cpu = distances["cuda"], distances["cpu"]
+    errs = {}
+    for key in ("late", "all"):
+        finite = np.isfinite(cpu[key])
+        check(np.array_equal(finite, np.isfinite(card[key])) and card[key].shape == cpu[key].shape,
+              f"first_turbulent_frame: {key} shapes or infinities differ")
+        errs[key] = float(np.abs(card[key][finite] - cpu[key][finite]).max())
+        check(np.allclose(card[key][finite], cpu[key][finite], **F32_TOL),
+              f"first_turbulent_frame: the card's {key} distances off the CPU's by {errs[key]} ({F32_TOL})")
+    check(card["first"] == cpu["first"], f"first turbulent frame: {card['first']} on the card, {cpu['first']} on the CPU")
+    row["values"].update(first_turbulent_frame=card["first"], first_turbulent_frame_max_abs_err=errs,
+                         first_turbulent_frame_limit=[card["limit"], cpu["limit"]])
+    log(f"    first turbulent frame {card['first']} on the card and the CPU; distances' max abs error {errs} "
+        f"(at {F32_TOL})")
+
+    # 4. The paper's run on the generated dataset through the training entry
+    # point: launches per step and per validation as in phase 6c.
+    out = root / "toolchain-run"
+    steps, validations, tasks = [], [], []
+    training_step, validate = DiffusionTask.training_step, Trainer.validate
+
+    def measured_step(task, *args, **kwargs):
+        tasks[:] = [task]
+        before = dict(ck.LAUNCH_COUNTS)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        result = training_step(task, *args, **kwargs)
+        end.record()
+        steps.append({"events": (start, end), "loss": result["train/loss"],
+                      "launches": {k: v - before[k] for k, v in ck.LAUNCH_COUNTS.items()}})
+        return result
+
+    def measured_validate(self, *args, **kwargs):
+        before = dict(ck.LAUNCH_COUNTS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = validate(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        validations.append({"s": time.perf_counter() - t0, "metrics": dict(result),
+                            "launches": {k: v - before[k] for k, v in ck.LAUNCH_COUNTS.items()}})
+        return result
+
+    overrides = [*TOOLCHAIN_RUN, f"data.root={data_root}", f"trainer.out_dir={out}",
+                 f"trainer.samples_root={out / 'samples'}"]
+    log(f"  train: {' '.join(TOOLCHAIN_RUN)}")
+    with patched(DiffusionTask, "training_step", measured_step), patched(Trainer, "validate", measured_validate):
+        score = step("train", train.main, overrides, device=None)
+    launches = row["launches"]["train"]
+    losses = [float(s["loss"]) for s in steps]
+    check(len(steps) == TOOLCHAIN_STEPS and all(math.isfinite(v) for v in losses), f"train: losses {losses}")
+    check(len(validations) == 1, f"train: {len(validations)} validations")
+    metrics = validations[0]["metrics"]
+    check({"val/tke", "val/max-mean-tke-pos"} <= set(metrics) and all(math.isfinite(v) for v in metrics.values()),
+          f"train: validation metrics {metrics}")
+    val_evals = DIAGNOSTIC_EVALS + TRAINER_DDIM_STEPS
+    for kernel in CHAIN_KERNELS:
+        per_step = [s["launches"][kernel] for s in steps]
+        check(per_step == [TRAIN_CHAIN_LAUNCHES] * TOOLCHAIN_STEPS,
+              f"train: {kernel} launched {per_step} per step, expected {TRAIN_CHAIN_LAUNCHES}")
+        check(validations[0]["launches"][kernel] == len(ENGAGED_BLOCKS) * val_evals,
+              f"train: {kernel} launched {validations[0]['launches'][kernel]} times in the validation, expected "
+              f"{len(ENGAGED_BLOCKS) * val_evals}")
+    check(launches["flash_attention"] == 0 and launches["conv3d_3x3"] == 0, f"train: launches {launches}")
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in (s["events"] for s in steps)]
+
+    # The region Wasserstein over a seeded subset of the generated regions,
+    # on the validation's stored samples.
+    store = tasks[0].sample_stores["val"]
+    stats = FieldStats.from_file(data_root / "stats.pickle")
+    t0 = time.perf_counter()
+    wasserstein = SampleMetricsCollection("val", data_root / "val", [WassersteinMetric(
+        solver="sinkhorn", max_regions=TOOLCHAIN_REGIONS, device="cuda")]).compute(store, stats)
+    torch.cuda.synchronize()
+    row["seconds"]["wasserstein_sinkhorn"] = time.perf_counter() - t0
+    check(math.isfinite(wasserstein.get("val/wasserstein", math.nan)), f"wasserstein: {wasserstein}")
+    row.update(step_ms=step_ms, losses=losses, monitor=score, validation_s=validations[0]["s"],
+               validation=metrics, launches_per_step=[s["launches"] for s in steps],
+               launches_per_validation=validations[0]["launches"], n_params=tasks[0].n_params())
+    row["values"]["wasserstein_over_regions"] = {"regions": TOOLCHAIN_REGIONS, **wasserstein}
+    log(f"    steps {step_ms!r} ms, losses {losses!r}; validation {validations[0]['s']!r} s: "
+        f"{json.dumps({k: v for k, v in metrics.items() if k in ('val/tke', 'val/max-mean-tke-pos')})}; "
+        f"{TRAIN_CHAIN_LAUNCHES} launches per step and {len(ENGAGED_BLOCKS)} x {val_evals} per validation for each "
+        f"chain kernel (as in phase 6c); val/wasserstein over {TOOLCHAIN_REGIONS} of {n_regions} regions "
+        f"{wasserstein['val/wasserstein']!r} in {row['seconds']['wasserstein_sinkhorn']!r} s")
+    row.update(card=smi, phase_s=time.perf_counter() - tic)
     return launches, row
 
 
@@ -2595,6 +2813,9 @@ def main() -> int:
             log(f"  phase 6e took {dp_rows['phase_s']!r} s")
             profile_launches, study_rows = study_scripts_phase(torch, ck, Path(tmp), smi, timings["fwd_ms"])
             log(f"  phase 6f took {study_rows['phase_s']!r} s")
+        with tempfile.TemporaryDirectory() as tmp:
+            toolchain_launches, toolchain_rows = toolchain_phase(torch, ck, Path(tmp), smi)
+            log(f"  phase 6g took {toolchain_rows['phase_s']!r} s")
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1
@@ -2602,8 +2823,8 @@ def main() -> int:
     profiles += [train_profile4, train_profile2]
     # Launches on the main paths (the 4-level and the 2-level sampler runs,
     # train steps, eval steps, the Trainer's runs, the checkpoint
-    # evaluation's entry points and profile_fwd), each counted from 0 just before the path
-    # runs; the train paths per step, the eval paths per eval_step, the
+    # evaluation's entry points, profile_fwd and the Trainer on the
+    # toolchain's case), each counted from 0 just before the path runs; the train paths per step, the eval paths per eval_step, the
     # Trainer per train step and per validation, eval_ckpt per val batch.
     diffusion = trainer_rows["diffusion"]
     for entry in kernels:
@@ -2612,7 +2833,8 @@ def main() -> int:
                              + sum(counts[name] for counts in eval_launches.values()) + trainer_launches[name]
                              + sum(counts[name] for counts in ckpt_launches.values())
                              + sum(counts[name] for counts in dp_launches["gloo_2"] + dp_launches["nccl_1"])
-                             + sum(counts[name] for counts in profile_launches.values()))
+                             + sum(counts[name] for counts in profile_launches.values())
+                             + toolchain_launches[name])
         entry["launches_by_path"] = {
             "4_levels": launches4[name], "2_levels": launches2[name],
             "train_4_levels": train4["launches_per_step"][name],
@@ -2631,8 +2853,11 @@ def main() -> int:
             "profile_fwd_per_unet_evaluation": {
                 mode: study_rows["profile_fwd"][mode]["launches_per_unet_evaluation"][name]
                 for mode in profile_launches},
+            "toolchain_trainer_per_step": [c[name] for c in toolchain_rows["launches_per_step"]],
+            "toolchain_trainer_per_validation": toolchain_rows["launches_per_validation"][name],
         }
     log(f"[7] card: {smi}")
+    print(json.dumps({"toolchain": toolchain_rows, "card": smi}))
     print(json.dumps({"study_scripts": study_rows, "card": smi}))
     print(json.dumps({"distributed": dp_rows, "card": smi}))
     print(json.dumps({"checkpoint_eval": ckpt_rows, "card": smi}))

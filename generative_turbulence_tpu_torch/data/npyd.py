@@ -13,15 +13,20 @@ with ``NpydFile``, anything else with ``h5py`` (imported there, so the
 ``h5py``'s interface the schema uses: ``f["data/u"]``, ``f["data/u"][idx]``,
 ``np.asarray(f["grid/cell_idx"])``, ``.shape``, ``.attrs``, ``.keys()``, ``.items()`` (in
 name order, as ``h5py`` lists them), ``in`` and ``with``.  ``write_case_file``
-writes either format from the same datasets and attributes.
+writes either format from the same datasets and attributes,
+``replace_groups`` swaps some top-level groups of an existing file of either
+format, and ``read_tree`` reads every dataset and attribute of one.  Where
+``h5py`` does not import, an ``.h5`` path raises and names the ``.npyd``
+format instead.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 from pathlib import Path
-from typing import Dict, Iterator, Mapping, Optional, Union
+from typing import Dict, Iterator, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -33,13 +38,22 @@ def is_npyd(path: Union[str, Path]) -> bool:
     return Path(path).suffix == SUFFIX
 
 
+def h5py_for(path: Union[str, Path]):
+    """The ``h5py`` module, to read or write the HDF5 file ``path``; where it
+    does not import, an error that names the ``.npyd`` format."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ModuleNotFoundError(f"{path}: the .h5 format needs h5py, which is not installed; "
+                                  "use the .npyd format (--format npyd)", name="h5py") from e
+    return h5py
+
+
 def open_case_file(path: Union[str, Path]):
     """Open an HDF5 file or a ``.npyd`` directory for reading, by its path."""
     if is_npyd(path):
         return NpydFile(path)
-    import h5py
-
-    return h5py.File(path, "r")
+    return h5py_for(path).File(path, "r")
 
 
 def read_attrs(root: Path) -> Dict[str, dict]:
@@ -97,17 +111,83 @@ def write_case_file(
     ``.npyd`` directory or, for any other path, as an HDF5 file."""
     if is_npyd(path):
         return write_npyd(path, arrays, attrs)
-    import h5py
-
     path = Path(path)
-    with h5py.File(path, "w") as f:
-        for name, array in arrays.items():
-            f.create_dataset(name, data=np.asarray(array))
-        for name, values in (attrs or {}).items():
-            obj = f.require_group(name) if name and name not in f else f[name or "/"]
-            for key, value in values.items():
-                obj.attrs[key] = value
+    with h5py_for(path).File(path, "w") as f:
+        _write_h5_items(f, arrays, attrs)
     return path
+
+
+def _write_h5_items(f, arrays: Mapping[str, np.ndarray], attrs: Optional[Mapping[str, Mapping]]) -> None:
+    for name, array in arrays.items():
+        f.create_dataset(name, data=np.asarray(array))
+    for name, values in (attrs or {}).items():
+        obj = f.require_group(name) if name and name not in f else f[name or "/"]
+        for key, value in values.items():
+            obj.attrs[key] = value
+
+
+def _in_groups(name: str, groups: Sequence[str]) -> bool:
+    return any(name == g or name.startswith(f"{g}/") for g in groups)
+
+
+def replace_groups(
+    path: Union[str, Path],
+    groups: Sequence[str],
+    arrays: Mapping[str, np.ndarray],
+    attrs: Optional[Mapping[str, Mapping]] = None,
+) -> Path:
+    """Replace the top-level ``groups`` of an existing case file with
+    ``arrays`` and ``attrs`` (as ``write_npyd`` takes them), keeping every
+    other dataset and attribute: an HDF5 file in place (mode ``"a"``), a
+    ``.npyd`` directory by its group directories and their entries of
+    ``attrs.json``."""
+    path = Path(path)
+    if not is_npyd(path):
+        with h5py_for(path).File(path, "a") as f:
+            for group in groups:
+                if group in f:
+                    del f[group]
+            _write_h5_items(f, arrays, attrs)
+        return path
+    if not path.is_dir():
+        raise FileNotFoundError(f"no .npyd directory at {path}")
+    kept = {name: values for name, values in read_attrs(path).items() if not _in_groups(name, groups)}
+    for group in groups:
+        shutil.rmtree(path / group, ignore_errors=True)
+        (path / f"{group}.npy").unlink(missing_ok=True)
+    return write_npyd(path, arrays, {**kept, **dict(attrs or {})})
+
+
+def read_tree(path: Union[str, Path]) -> Tuple[Dict[str, np.ndarray], Dict[str, dict]]:
+    """Every dataset ({path: array}) and every group's and dataset's
+    attributes ({path: {name: value}}, ``""`` the root's, each group listed)
+    of a case file of either format, as ``write_case_file`` takes them."""
+    arrays: Dict[str, np.ndarray] = {}
+    attrs: Dict[str, dict] = {}
+    with open_case_file(path) as f:
+        if is_npyd(path):
+            def walk(group, name):
+                attrs[name] = dict(group.attrs)
+                for key, obj in group.items():
+                    child = f"{name}/{key}" if name else key
+                    if isinstance(obj, NpydGroup):
+                        walk(obj, child)
+                    else:
+                        arrays[child] = np.asarray(obj)
+                        attrs[child] = dict(obj.attrs)
+
+            walk(f, "")
+        else:
+            h5py = h5py_for(path)
+            attrs[""] = dict(f.attrs)
+
+            def visit(name, obj):
+                attrs[name] = dict(obj.attrs)
+                if isinstance(obj, h5py.Dataset):
+                    arrays[name] = obj[()]
+
+            f.visititems(visit)
+    return arrays, attrs
 
 
 class NpydDataset:

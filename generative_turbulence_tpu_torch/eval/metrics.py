@@ -16,7 +16,12 @@ embedding, spectra, vorticity, the Sinkhorn solve) runs on the metric's
   regions' cell counts, then an outer W2.  ``solver="exact"``: host EMDs,
   on a pool of spawned processes; ``"sinkhorn"``: entropic OT on the device.
 - ``MaxMeanTKEPositionMetric`` (cheap): squared error of the argmax-x of the
-  mean-TKE profile behind the obstacle against ``max-mean-tke.npy``.
+  mean-TKE profile behind the obstacle against ``max-mean-tke.npy``.  A
+  deviation from the JAX package: where the samples hardly fluctuate (the
+  profile's largest value within rounding of 0 relative to the samples'
+  mean square, as for one flow repeated) the argmax would be rounding
+  noise, so the metric is undefined there (NaN) and left out of the mean
+  over the cases.  On every other sample set it is the JAX package's value.
 
 ``SampleMetricsCollection`` runs each metric per case against ground-truth
 frames spaced evenly over the SECOND half of the simulation and averages
@@ -27,6 +32,7 @@ of every rank first.
 from __future__ import annotations
 
 import functools
+import math
 import multiprocessing
 import os
 from collections import defaultdict, deque
@@ -255,6 +261,12 @@ class WassersteinMetric:
 
 
 class MaxMeanTKEPositionMetric:
+    # Where the samples do not fluctuate the profile is 0 in exact
+    # arithmetic; in float32 each fluctuation is then at most the rounding of
+    # the mean over B samples, about B ulps of the velocity, so the profile
+    # stays below (B * eps)^2 times the samples' mean square.
+    ROUNDING = float(np.finfo(np.float32).eps)
+
     def __init__(self, device="cuda"):
         self.device = device
 
@@ -274,8 +286,15 @@ class MaxMeanTKEPositionMetric:
         x_cut = min(24, u_sample.shape[1] - 1)
         tke = 0.5 * (u_fluc[:, x_cut:] ** 2).sum(dim=-1)
         profile = tke.mean(dim=(-1, -2))  # (B, X')
+        if float(profile.max()) <= (len(u_sample) * self.ROUNDING) ** 2 * float((u_sample**2).mean()):
+            return {"max-mean-tke-pos": math.nan}  # undefined: the argmax of rounding noise
         estimate = float(profile.argmax(dim=1).double().mean()) + x_cut
         return {"max-mean-tke-pos": (gt - estimate) ** 2}
+
+
+# Metrics that are undefined (NaN) on some sample sets by design: a case
+# where one is undefined is left out of its mean over the cases.
+UNDEFINED_ON_SOME_CASES = ("max-mean-tke-pos",)
 
 
 class SampleMetricsCollection:
@@ -354,7 +373,9 @@ class SampleMetricsCollection:
             case_values_list = [
                 values[self.log_name(c, name)] for c in sorted(merged) if self.log_name(c, name) in values
             ]
-            values[f"{self.prefix}/{name}"] = float(np.mean(case_values_list))
+            if name in UNDEFINED_ON_SOME_CASES:
+                case_values_list = [v for v in case_values_list if not math.isnan(v)]
+            values[f"{self.prefix}/{name}"] = float(np.mean(case_values_list)) if case_values_list else math.nan
         return values
 
     def log_name(self, case: str, metric: str) -> str:

@@ -16,6 +16,7 @@ rel 1e-5 / abs 1e-8 (tests/test_distributed.py:185-203, ``val/sample-*``
 excepted there as here: those are each rank's own batch means)."""
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -323,11 +324,19 @@ def test_sharded_validation_merges_to_the_single_process_metrics(val_runs):
     m0, m1 = _rank0_only(r0), _rank0_only(r1)
     assert m0.keys() == m1.keys() == _rank0_only(one).keys()
     assert {f"val/{case}/tke" for case in val_runs["cases"]} <= m0.keys() and "val/eps-loss-ema-t3" in m0
+    # 16 cells along x: the TKE profile behind x = 24 is the outlet's padding
+    # plane alone, 0 everywhere, so the port reports max-mean-tke-pos as
+    # undefined (NaN) on every rank, where JAX takes the argmax of zeros.
+    undefined = {k for k in m0 if k.endswith("max-mean-tke-pos")}
+    assert len(undefined) == len(val_runs["cases"]) + 1
     for k in m0:
+        if k in undefined:
+            assert math.isnan(m0[k]) and math.isnan(m1[k]) and math.isnan(one[k]) and math.isfinite(jm[k]), k
+            continue
         assert m1[k] == pytest.approx(m0[k], **RANK_REL), k
         assert m0[k] == pytest.approx(one[k], **ONE_PROCESS_REL), k
     assert _rank0_only(jm).keys() == m0.keys()
-    for k in m0:
+    for k in m0.keys() - undefined:
         assert m0[k] == pytest.approx(jm[k], **ONE_PROCESS_REL), k
 
 

@@ -4,6 +4,8 @@ port-written ``.h5`` read by the JAX store), and each metric and the
 collection on the same frames of the JAX-written ``synthetic_root``, at
 rtol 1e-3."""
 
+import dataclasses
+import math
 import shutil
 
 import numpy as np
@@ -196,6 +198,47 @@ def test_max_mean_tke_position_matches_jax(val_case):
     port, jax_args = _frames(val_case, [2, 5, 8], [3, 6, 9])
     _assert_metric_close(MaxMeanTKEPositionMetric(device="cpu")(*port),
                          jmetrics.MaxMeanTKEPositionMetric()(*jax_args))
+
+
+def _with_u(data, u):
+    """``data`` (either package's ``CaseData``) with ``u`` as its velocity."""
+    return dataclasses.replace(data, fields={**data.fields, next(v for v in data.fields if v.key == "u"): u})
+
+
+@pytest.mark.parametrize("spread", [1e-4, 1e-2, 1.0], ids=["near-repeated", "small", "frames"])
+def test_max_mean_tke_position_matches_jax_on_fluctuating_samples(val_case, spread):
+    """Samples that fluctuate, even little (one frame plus ``spread`` times
+    the differences to two others), get the JAX package's value."""
+    port, jax_args = _frames(val_case, [2, 5, 8], [3, 6, 9])
+    u = port[0].fields[Variable.U]
+    u = (u[:1] + spread * (u - u[:1])).astype(np.float32)
+    got = MaxMeanTKEPositionMetric(device="cpu")(_with_u(port[0], u), *port[1:])
+    want = jmetrics.MaxMeanTKEPositionMetric()(_with_u(jax_args[0], u), *jax_args[1:])
+    assert np.isfinite(got["max-mean-tke-pos"])
+    _assert_metric_close(got, want)
+
+
+def test_max_mean_tke_position_undefined_on_repeated_samples(val_case, synthetic_root, tmp_path):
+    """One frame repeated: the TKE profile is 0 in exact arithmetic, so the
+    port reports the metric as undefined (NaN) where the JAX package takes
+    the argmax of rounding noise, and the collection's mean leaves that case
+    out (a deviation from the JAX package)."""
+    port, jax_args = _frames(val_case, [5, 5, 5, 5], [3, 6, 9])
+    assert math.isnan(MaxMeanTKEPositionMetric(device="cpu")(*port)["max-mean-tke-pos"])
+    assert np.isfinite(jmetrics.MaxMeanTKEPositionMetric()(*jax_args)["max-mean-tke-pos"])
+
+    root = tmp_path / "root"
+    for name in ("case-val-00", "case-val-01"):
+        shutil.copytree(synthetic_root / "val" / "case-val-00", root / "val" / name)
+    store = SampleStore(tmp_path / "samples.npyd", UP)
+    meta = val_case[0].read_metadata(0)
+    frames = val_case[0].read(0, [2, 5, 8, 11]).stacked_cells(UP)
+    store.add_samples(frames[[1, 1, 1, 1]], dataclasses.replace(meta, file=root / "val" / "case-val-00" / "x"))
+    store.add_samples(frames, dataclasses.replace(meta, file=root / "val" / "case-val-01" / "x"))
+    got = SampleMetricsCollection("val", root / "val", [MaxMeanTKEPositionMetric("cpu")]).compute(store, val_case[2])
+    assert math.isnan(got["val/case-val-00/max-mean-tke-pos"])
+    assert np.isfinite(got["val/case-val-01/max-mean-tke-pos"])
+    assert got["val/max-mean-tke-pos"] == got["val/case-val-01/max-mean-tke-pos"]
 
 
 def _metrics(package, **kw):

@@ -846,3 +846,52 @@ def test_tke_profile_on_gpu(npyd_root, tmp_path):
         np.testing.assert_allclose(got[case]["data"], w["data"], rtol=1e-4)
         assert [got[case][k] for k in ("argmax_samples", "argmax_data", "gt_pos")] == [
             w[k] for k in ("argmax_samples", "argmax_data", "gt_pos")]
+
+
+@pytest.fixture(scope="module")
+def toolchain_root(tmp_path_factory):
+    """``generate_shapes --mock-direct --overfit 1 --frames 8 --scale 0.25``:
+    the first train shape (48x12x12 cells) in ``.npyd``, every analysis."""
+    from generative_turbulence_tpu_torch.scripts import generate_shapes
+
+    _needs_card()
+    root = tmp_path_factory.mktemp("toolchain") / "shapes"
+    generate_shapes.main([str(root), "--mock-direct", "--overfit", "1", "--frames", "8", "--scale", "0.25"])
+    return root
+
+
+@pytest.mark.gpu
+def test_first_turbulent_frame_on_gpu(toolchain_root):
+    """The first turbulent frame of the generated case on the card against
+    the CPU: the index equal, both distance matrices at the f32 tolerance."""
+    from generative_turbulence_tpu_torch.toolchain import analysis
+
+    _needs_card()
+    data = next((toolchain_root / "train").iterdir()) / "data.npyd"
+    got, want = (analysis.turbulent_frame_distances(data, device=device) for device in ("cuda", "cpu"))
+    assert got["first"] == want["first"] == analysis.first_turbulent_frame(data, device="cuda")
+    for key in ("late", "all"):
+        finite = np.isfinite(want[key])
+        assert np.array_equal(np.isfinite(got[key]), finite)
+        np.testing.assert_allclose(got[key][finite], want[key][finite], **F32_TOL)
+
+
+@pytest.mark.gpu
+def test_generated_case_trains_on_gpu(toolchain_root, tmp_path):
+    """One diffusion Trainer step (bf16, 1 level, dim 8) and its validation
+    on the card, through the training entry point, on the generated case: a finite
+    loss and finite metrics, those that read its ``mean-flow.npyd`` and
+    ``max-mean-tke.npy`` among them."""
+    import json
+
+    from generative_turbulence_tpu_torch import train
+
+    _needs_card()
+    out = tmp_path / "run"
+    score = train.main(["model=diffusion", *TRAINER_OVERRIDES, "model.compute_dtype=bfloat16", "trainer.max_steps=1",
+                        f"data.root={toolchain_root}", f"trainer.out_dir={out}"])
+    records = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train/loss"] for r in records if "train/loss" in r]
+    val = next(r for r in records if "val/tke" in r)
+    assert losses and all(np.isfinite(losses))
+    assert np.isfinite(score) and np.isfinite(val["val/tke"]) and np.isfinite(val["val/max-mean-tke-pos"])

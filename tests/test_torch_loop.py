@@ -19,6 +19,7 @@ logger and the command line."""
 
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -357,6 +358,11 @@ def test_sharded_validation_over_ranks_is_refused(tiny_root, tmp_path):
     for metrics in (r0["metrics"], r1["metrics"]):
         assert {k for k in metrics if not k.startswith("val/sample-")} == merged.keys()
         for k, v in merged.items():
+            if k.endswith("max-mean-tke-pos"):
+                # 10 cells along x: the TKE profile behind x = 24 is the outlet's
+                # padding plane alone, 0 everywhere, so the metric is undefined.
+                assert math.isnan(metrics[k]) and math.isnan(v), k
+                continue
             assert metrics[k] == pytest.approx(v, rel=1e-5, abs=1e-8), k
 
 
