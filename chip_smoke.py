@@ -184,6 +184,37 @@ Run from the repository root:  python3 chip_smoke.py
    on the card over 8 seeded regions of the generated ``regions.npz`` on the
    validation's stored samples (finite).  Prints one ``toolchain`` JSON line
    first among the result lines.
+6h. The spatial axis (``trainer.mesh_shape=[dp,sp]``), after 6e on its
+   dataset.  The chain conv's halo variant (``conv3x3x3_stats_halo`` and
+   ``conv3x3x3_stats_silu_in_halo``) at u_net.down_0's slab at sp = 2 (6 x
+   97 x 50 x 50, 64 -> 64, bf16; one slab with the neighbour's plane after
+   it, the other before it) against its plain twin (rtol 0.06, atol 0.03,
+   corr > 0.999; moments within 1e-3; a second run bit-equal), the two
+   slabs' outputs against the whole grid's conv without a halo (bit-equal),
+   timed beside the conv without a halo on the same slab (in turns), the
+   plain twin, cuDNN's bf16 pad + conv + bias and the bound (the FLOPs plus
+   the halo plane's bytes).  Then the paper's run through the training
+   entry point on 2 gloo ranks sharing the card at ``trainer.mesh_shape=
+   [1,2]`` (``torch.distributed.run``, the rank worker of 6e): the backend,
+   the mesh, 7 launches per rank per step of each halo conv and of
+   ``affine_silu`` and none of the convs without a halo, the losses and the
+   first step's gradients and ``val/tke`` held against 6e's single run by
+   6e's bound (the x 1.1 gradients refused), every step's gradients each
+   within that bound (or 3x two single runs' difference at that step), the
+   parameters within the first step's bound (3x the single runs' spread,
+   6e's rule for its NCCL rank, reported beside), their change over the 4
+   steps reported beside the single runs' with its worst leaf's steps (each
+   step's difference, how far the steps cancel in their sum, the change in
+   units of the weights' f32 spacing); the same pair of runs in f32 (one process
+   and mesh (1, 2) side by side): losses within rel 2e-4 and every leaf's
+   change over the 4 steps within 3e-2 of the one process's; peak memory
+   per rank below the single run's, a DDIM-10 sample of
+   seeded weights and draws on the val batch against the single run's (the
+   bf16 tolerance at the output's scale, as for ``flash_attention``), and one halo exchange at down_0's slab timed (host clock,
+   synced, forward and backward) with the exchanges per step counted.  Then
+   ``graft_entry.dryrun_multichip(2)`` on the card in a process of its own
+   (mesh (1x2)).  Prints one ``spatial`` JSON line first among the result
+   lines.
 7. Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
    Every kernel's entry has its time, its bound (``bound_ms``: the larger of
    its bytes over the memory rate and its operations over the peak rate of
@@ -194,15 +225,17 @@ Run from the repository root:  python3 chip_smoke.py
    the train paths, per ``eval_step`` on the eval paths, per Trainer step
    and validation on the Trainer's, and per val batch of ``eval_ckpt`` and
    per entry point of phase 6d, per rank per step of phase 6e, per
-   mode and per U-Net evaluation of phase 6f's ``profile_fwd``, and per
-   step and per validation of phase 6g's Trainer).
+   mode and per U-Net evaluation of phase 6f's ``profile_fwd``, per
+   step and per validation of phase 6g's Trainer, and per rank per step of
+   phase 6h's mesh (1, 2), where the halo variants launch).
 
 Any failure exits non-zero before the last line.
 
 ``python3 chip_smoke.py --multi-card``, on a machine with several cards,
 runs phase 6e's comparison at world = the card count over NCCL (batch 2 x
-cards, one card per rank) against one process and prints one
-``multi_card`` JSON line.
+cards, one card per rank) against one process and, with four cards, the
+meshes (2, 2) and (1, 4) (the halo variants' launches checked), and prints
+one ``multi_card`` JSON line.
 """
 
 from __future__ import annotations
@@ -230,6 +263,10 @@ BF16_RTOL, BF16_ATOL, MIN_CORR = 0.06, 0.03, 0.999
 MAX_REL_L2 = 1e-2  # bf16 flash_attention: a 1.1x output is off by 0.1
 F32_RTOL, F32_ATOL = 2e-4, 2e-5
 CHAIN_KERNELS = ("conv3x3x3_stats", "conv3x3x3_stats_silu_in", "affine_silu")
+# The chain's kernels on the spatial axis: the convs' halo variant.
+HALO_KERNELS = ("conv3x3x3_stats_halo", "conv3x3x3_stats_silu_in_halo")
+SP_CHAIN_KERNELS = (*HALO_KERNELS, "affine_silu")
+NO_HALO = {name: 0 for name in HALO_KERNELS}
 # (name, X, Y, Z, C_in, F) of the blocks the gate engages at the shapes grid.
 # The 2-level net engages the same four (tests/test_torch_task.py): up_1 sees
 # 256 input channels and the centre blocks 48x12x12 voxels, outside the gate.
@@ -1870,7 +1907,8 @@ def checkpoint_eval_phase(torch, ck, root: Path, smi: str) -> tuple:
 
     def chain_launches(name: str, evaluations: int) -> None:
         counts = row["launches"][name]
-        want = dict({k: evaluations * len(ENGAGED_BLOCKS) for k in CHAIN_KERNELS}, flash_attention=0, conv3d_3x3=0)
+        want = dict({k: evaluations * len(ENGAGED_BLOCKS) for k in CHAIN_KERNELS}, flash_attention=0, conv3d_3x3=0,
+                    **NO_HALO)
         check(counts == want, f"{name}: launches {counts}, expected {want}")
 
     cheap = ("val/tke", "val/max-mean-tke-pos")
@@ -2002,69 +2040,130 @@ DP_LOSS_TOL = dict(rel=0.06, abs=0.03)  # the bf16 loss tolerance (tests/test_to
 DP_TKE_RTOL = 1e-4
 DP_TIMEOUT_S = 300
 DP_ALLREDUCE_REPS = 5
+# The seeded DDIM-10 sample every rank worker takes after its run (weights
+# and draws from these seeds, the first val batch), and the halo exchanges
+# timed on the spatial axis, at u_net.down_0's slab.
+SAMPLE_SEED, SAMPLE_NOISE_SEED = 5, 6
+HALO_REPS = 5
+# u_net.down_0's input at the paper's batch (B, X, Y, Z, C): on the spatial
+# axis each rank holds an x slab of it.
+SP_SLAB = (6, 194, 50, 50, 64)
 
 
 def rank_worker(out_dir: Path, overrides: list) -> int:
     """``python chip_smoke.py --rank-worker <out_dir> <override> ...``: one
-    rank of phase 6e (or its single process).  Runs the training entry
+    rank of phase 6e or 6h (or its single process).  Runs the training entry
     point's ``main`` with ``trainer.out_dir=<out_dir>/rank<r>`` and the
     samples in ``<out_dir>/samples``, measuring each train step (CUDA
-    events, launches, loss) and keeping the first step's all-reduced
-    gradients (``grads.pt``) and the final parameters (``params.pt``) on
-    rank 0; then times an all-reduce of the gradients' bytes
-    (``dp/all_reduce``) and writes ``<out_dir>/rank<r>.json``."""
+    events, launches, loss, halo exchanges) and keeping the starting
+    parameters (``start.pt``), the first step's all-reduced gradients
+    (``grads.pt``; with ``SMOKE_STEP_GRADS=1`` every step's, stacked per
+    leaf, in ``step_grads.pt``) and the final parameters (``params.pt``) on
+    rank 0; then
+    samples the first val batch at DDIM-10 from seeded weights and draws
+    (``samples.rank<r>.pt``), times an all-reduce of the gradients' bytes
+    (``dp/all_reduce``) and, on a spatial axis, one halo exchange at
+    down_0's slab, and writes ``<out_dir>/rank<r>.json``."""
     sys.path.insert(0, str(ROOT))
     import torch
     import torch.distributed as dist
     from torch.profiler import record_function
 
     from generative_turbulence_tpu_torch import train
+    from generative_turbulence_tpu_torch.data.dataset import DataModule
+    from generative_turbulence_tpu_torch.diffusion.gaussian import GeneratorNoise
     from generative_turbulence_tpu_torch.ops import cuda_kernels as ck
+    from generative_turbulence_tpu_torch.parallel import spatial
     from generative_turbulence_tpu_torch.parallel.distributed import process_rank_and_world
+    from generative_turbulence_tpu_torch.parallel.mesh import mesh_layout
     from generative_turbulence_tpu_torch.training.diffusion_task import DiffusionTask
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     rank = int(os.environ.get("RANK", "0"))
-    steps = {"events": [], "launches": [], "losses": []}
+    steps = {"events": [], "launches": [], "losses": [], "exchanges": []}
     tasks = []
     training_step = DiffusionTask.training_step
+    exchange_apply = spatial._Exchange.apply
+    exchanges = [0]
+    step_grads = [] if rank == 0 and os.environ.get("SMOKE_STEP_GRADS") == "1" else None
+
+    def counted_exchange(*args):
+        exchanges[0] += 1
+        return exchange_apply(*args)
 
     def measured_step(task, cells, grid, noise):
         if not tasks:
             tasks.append(task)
-        before = dict(ck.LAUNCH_COUNTS)
+            if rank == 0:
+                torch.save({k: v.cpu() for k, v in task.net.state_dict().items()}, out_dir / "start.pt")
+        before, exchanges_before = dict(ck.LAUNCH_COUNTS), exchanges[0]
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         out = training_step(task, cells, grid, noise)
         end.record()
         steps["events"].append((start, end))
+        steps["exchanges"].append(exchanges[0] - exchanges_before)
         steps["launches"].append({k: v - before[k] for k, v in ck.LAUNCH_COUNTS.items()})
         steps["losses"].append(out["train/loss"])
         if len(steps["events"]) == 1 and rank == 0:
             torch.save({n: p.grad.float().cpu() for n, p in task.net.named_parameters()}, out_dir / "grads.pt")
+        if step_grads is not None:
+            step_grads.append({n: p.grad.float().cpu() for n, p in task.net.named_parameters()})
         return out
 
     ck.reset_launch_counts()
     tic = time.perf_counter()
-    with patched(DiffusionTask, "training_step", measured_step):
+    with patched(DiffusionTask, "training_step", measured_step), patched(spatial._Exchange, "apply", counted_exchange):
         score = train.main([*overrides, f"trainer.out_dir={out_dir / f'rank{rank}'}",
                             f"trainer.samples_root={out_dir / 'samples'}"])
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - tic
     task = tasks[0]
     _, world = process_rank_and_world()
+    layout = mesh_layout()
     row = {"rank": rank, "world": world, "backend": dist.get_backend() if dist.is_initialized() else None,
+           "mesh": [layout.dp, layout.sp], "dp_index": layout.dp_index, "sp_index": layout.sp_index,
            "device": str(task.device), "card": torch.cuda.get_device_name(task.device),
            "train_net": type(task.train_net).__name__, "fit_s": fit_s,
            "step_ms": [a.elapsed_time(b) for a, b in steps["events"]],
            "launches_per_step": steps["launches"], "launches": dict(ck.LAUNCH_COUNTS),
+           "exchanges_per_step": steps["exchanges"],
            "losses": [float(v) for v in steps["losses"]], "monitor": score,
            "peak_gib": torch.cuda.max_memory_allocated(task.device) / 2**30, "n_params": task.n_params(),
            "store_file": task.sample_stores["val"].samples_file.name,
            "store_cases": sorted(task.sample_stores["val"].case_names)}
     if rank == 0:
         torch.save({k: v.cpu() for k, v in task.net.state_dict().items()}, out_dir / "params.pt")
+    if step_grads is not None:
+        torch.save({n: torch.stack([g[n] for g in step_grads]) for n in step_grads[0]}, out_dir / "step_grads.pt")
+        del step_grads
+    # The seeded sample: the same weights and draws in every run, so a
+    # spatial run's samples are held against one process's.
+    root = next(Path(o.split("=", 1)[1]) for o in overrides if o.startswith("data.root="))
+    batch = next(iter(DataModule(root, discard_first_seconds=-1, eval_batch_size=8, val_samples=8)
+                      .setup("validate").val_batches())).to(task.device)
+    task.init_weights(torch.Generator(device=task.device).manual_seed(SAMPLE_SEED))
+    task.ema = None
+    noise = GeneratorNoise(torch.Generator(device=task.device).manual_seed(SAMPLE_NOISE_SEED), task.device)
+    torch.save(task.sample(batch.cells, batch.grid, noise).float().cpu(), out_dir / f"samples.rank{rank}.pt")
+    if layout.sp > 1:
+        # One halo exchange of u_net.down_0's input slab, forward and backward.
+        s, e = layout.axis.slab(SP_SLAB[1])
+        x = torch.randn(SP_SLAB[0], e - s, *SP_SLAB[2:5], device=task.device, dtype=torch.bfloat16,
+                        requires_grad=True)
+        times = {"forward_ms": [], "backward_ms": []}
+        for _ in range(HALO_REPS + 1):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            lo, hi = spatial.halo_exchange(x, 1, layout.axis)
+            torch.cuda.synchronize()
+            mid = time.perf_counter()
+            torch.autograd.backward((lo, hi), (torch.ones_like(lo), torch.ones_like(hi)))
+            torch.cuda.synchronize()
+            times["forward_ms"].append((mid - tic) * 1e3)
+            times["backward_ms"].append((time.perf_counter() - mid) * 1e3)
+        row["halo_exchange_down_0"] = {k: v[1:] for k, v in times.items()}  # the first is the warm-up
     if dist.is_initialized():
         grads = torch.zeros(task.n_params(), device=task.device)
         dist.all_reduce(grads)
@@ -2133,25 +2232,31 @@ def rank_rows(out: Path, world: int) -> list:
     return [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)]
 
 
+def param_diffs(torch, a: Path, b: Path) -> dict:
+    """Each parameter leaf's relative L2 difference between the final
+    parameters of two runs."""
+    a, b = (torch.load(out / "params.pt") for out in (a, b))
+    return {k: float(torch.linalg.vector_norm(a[k].float() - b[k].float())
+                     / torch.linalg.vector_norm(b[k].float()).clamp_min(1e-30)) for k in b}
+
+
 def param_spread(torch, a: Path, b: Path) -> float:
     """The largest relative L2 difference of a parameter leaf between the
     final parameters of two runs."""
-    a, b = (torch.load(out / "params.pt") for out in (a, b))
-    return max(float(torch.linalg.vector_norm(a[k].float() - b[k].float())
-                     / torch.linalg.vector_norm(b[k].float()).clamp_min(1e-30)) for k in b)
+    return max(param_diffs(torch, a, b).values())
 
 
-def check_rank_steps(rows: list) -> None:
+def check_rank_steps(rows: list, kernels=CHAIN_KERNELS) -> None:
     """``DP_STEPS`` steps in each run and rank, each launching every chain
-    kernel ``TRAIN_CHAIN_LAUNCHES`` times and no other kernel."""
+    kernel of the path (``kernels``: ``SP_CHAIN_KERNELS`` on a spatial
+    axis) ``TRAIN_CHAIN_LAUNCHES`` times and no other kernel."""
     for row in rows:
         check(len(row["losses"]) == DP_STEPS, f"rank {row['rank']}: {len(row['losses'])} steps, not {DP_STEPS}")
         for counts in row["launches_per_step"]:
-            for name in CHAIN_KERNELS:
-                check(counts[name] == TRAIN_CHAIN_LAUNCHES,
-                      f"{row['backend']} rank {row['rank']}: {name} launched {counts[name]} times in a step, "
-                      f"expected {TRAIN_CHAIN_LAUNCHES}")
-            check(counts["flash_attention"] == 0 and counts["conv3d_3x3"] == 0, f"launches in a step: {counts}")
+            for name, n in counts.items():
+                want = TRAIN_CHAIN_LAUNCHES if name in kernels else 0
+                check(n == want, f"{row['backend']} rank {row['rank']}: {name} launched {n} times in a step, "
+                                 f"expected {want}")
 
 
 def hold_ranks(torch, single: dict, single_out: Path, ranks: list, ranks_out: Path, bound: float, label: str) -> dict:
@@ -2205,7 +2310,8 @@ def data_parallel_phase(torch, ck, root: Path, smi: str) -> tuple:
     dist_env = {"GT_DISTRIBUTED": "1"}
     # The single runs and the NCCL rank side by side (their steps share the
     # card), then the two gloo ranks alone (their step times and all-reduce).
-    outs = finish_runs(start_runs(root, {"single_a": ([], {}), "single_b": ([], {}),
+    step_grads = {"SMOKE_STEP_GRADS": "1"}  # for phase 6h
+    outs = finish_runs(start_runs(root, {"single_a": ([], step_grads), "single_b": ([], step_grads),
                                          "nccl_1": ([*torchrun, "--nproc-per-node", "1"], dist_env)}))
     outs.update(finish_runs(start_runs(root, {"gloo_2": ([*torchrun, "--nproc-per-node", "2"], dist_env)})))
     (a,), (b,), (g0, g1), (n0,) = (rank_rows(outs[name], w) for name, w in
@@ -2289,6 +2395,287 @@ def data_parallel_phase(torch, ck, root: Path, smi: str) -> tuple:
     return launches, row
 
 
+# Phase 6h, the spatial axis: 6e's paper run at trainer.mesh_shape=[1,2] on two
+# gloo ranks sharing the card, held against 6e's single run; the chain conv's
+# halo variant at u_net.down_0's slab; graft_entry's dry run on the card.
+SP_RUN = ["trainer.mesh_shape=[1,2]"]
+SP_KERNEL_REPS = 20
+# The same pair of runs, one process and mesh (1, 2), in f32: each leaf's
+# change over the DP_STEPS steps held within SP_F32_CHANGE_BOUND of the one
+# process's (in bf16 the change is reported beside the single runs').
+SP_F32 = ["model.compute_dtype=float32"]
+SP_F32_CHANGE_BOUND = 3e-2
+
+
+def step_agreement(torch, got: dict, want: dict) -> list:
+    """Each step's gradients of two runs (``step_grads.pt``: leaf -> steps
+    stacked) compared as ``grad_agreement`` does the first step's."""
+    names = list(want)
+    return [grad_agreement(torch, [got[k][t].cuda() for k in names], [want[k][t].cuda() for k in names], names)
+            for t in range(len(want[names[0]]))]
+
+
+def leaf_steps(torch, got: dict, want: dict, leaf: str) -> dict:
+    """One leaf over the steps: each step's gradient relative L2
+    difference, and how far ``want``'s steps cancel in their sum (the sum
+    of their norms over the norm of their sum; the first DP_STEPS RAdam
+    updates are positive combinations of the steps' clipped gradients, so
+    a difference of e in each step's gradient may show as up to about e
+    times this in the leaf's change)."""
+    g, w = got[leaf].double(), want[leaf].double()
+    norm = torch.linalg.vector_norm
+    return {"leaf": leaf, "step_rel_l2": [float(norm(g[t] - w[t]) / norm(w[t])) for t in range(len(w))],
+            "cancellation": float(sum(norm(w[t]) for t in range(len(w))) / norm(w.sum(0)))}
+
+
+def change_in_ulps(torch, got_out: Path, want_out: Path, leaf: str) -> dict:
+    """One leaf's change over each of two runs from the same start in units
+    of the f32 spacing (ulp) of its starting values: the share of elements
+    left unchanged, the share changed by at most one ulp and the median;
+    and the share of elements whose final values differ between the runs
+    (a change of a few ulps rounds the optimizer's update to the weights'
+    grid, so a small difference in the update can move it by a whole ulp)."""
+    start = torch.load(want_out / "start.pt")[leaf].float()
+    ends = [torch.load(out / "params.pt")[leaf].float() for out in (got_out, want_out)]
+    a = start.abs()
+    ulp = (torch.nextafter(a, torch.full_like(a, math.inf)) - a).double()
+    out = {"differ": float((ends[0] != ends[1]).double().mean())}
+    for name, end in zip(("got", "want"), ends):
+        ulps = (end.double() - start.double()).abs() / ulp
+        out[name] = {"unchanged": float((ulps == 0).double().mean()), "within_1_ulp": float((ulps <= 1).double().mean()),
+                     "median_ulps": float(ulps.median())}
+    return out
+
+
+def change_agreement(torch, got_out: Path, want_out: Path) -> dict:
+    """The parameters' change over a run (``params.pt`` less ``start.pt``,
+    in f64: the changes are small) against another run's from the same
+    start, as ``grad_agreement`` compares gradients, with each leaf's
+    relative L2 difference (``leaves``)."""
+    start = torch.load(want_out / "start.pt")
+    check(all(torch.equal(v, start[k]) for k, v in torch.load(got_out / "start.pt").items()),
+          f"{got_out.name} and {want_out.name} start from different parameters")
+    got, want = (torch.load(out / "params.pt") for out in (got_out, want_out))
+    names = list(want)
+    got, want = ([t[k].double() - start[k].double() for k in names] for t in (got, want))
+    norm = torch.linalg.vector_norm
+    return {**grad_agreement(torch, got, want, names),
+            "leaves": {k: float(norm(g - w) / norm(w).clamp_min(1e-30)) for k, g, w in zip(names, got, want)}}
+
+
+def halo_kernel_rows(torch, ck) -> list:
+    """The halo variant of each chain conv at u_net.down_0's slab at sp = 2
+    (rank 0's slab has the neighbour's plane after it, rank 1's before it),
+    each against its plain twin and the two slabs' outputs against the whole
+    grid's conv without a halo (bit-equal); rank 0's slab timed beside the
+    conv without a halo on the same slab (in turns), the plain twin, cuDNN's
+    bf16 pad + conv + bias over the slab and its halo, and the bound."""
+    B, X, Y, Z, C = SP_SLAB
+    F = C
+    gen = torch.Generator().manual_seed(12)
+    bf = torch.bfloat16
+    whole = torch.randn(B, X, Y, Z, C, generator=gen).to("cuda", bf)
+    w = (torch.randn(3, 3, 3, C, F, generator=gen) * (27 * C) ** -0.5).to("cuda", bf)
+    bias = (0.1 * torch.randn(F, generator=gen)).cuda()
+    act = ((1 + 0.2 * torch.randn(B, C, generator=gen)).cuda(), (0.2 * torch.randn(B, C, generator=gen)).cuda())
+    m = X // 2
+    slabs = [(whole[:, :m].contiguous(), (whole[:, :0], whole[:, m : m + 1].contiguous())),
+             (whole[:, m:].contiguous(), (whole[:, m - 1 : m].contiguous(), whole[:, :0]))]
+    n = m * Y * Z
+    rows = []
+    for name, a in (("conv3x3x3_stats_halo", None), ("conv3x3x3_stats_silu_in_halo", act)):
+        errs = []
+        for j, (xs, halo) in enumerate(slabs):
+            got, part = ck._conv3x3x3_stats_kernel(xs, w, bias, a, halo)
+            want, want_part = ck._conv3x3x3_stats_plain(xs, w, bias, a, halo)
+            torch.cuda.synchronize()
+            label = f"{name} sp-rank {j} of 2 at down_0's slab B={B} {xs.shape[1]}x{Y}x{Z} {C}->{F}"
+            errs.append(compare(torch, got, want, label))
+            sums, want_sums = part.sum(1), want_part.sum(1)
+            count = xs.shape[1] * Y * Z
+            mean, want_mean = sums[:, 0] / count, want_sums[:, 0] / count
+            var, want_var = sums[:, 1] / count - mean**2, want_sums[:, 1] / count - want_mean**2
+            err = max(float(((mean - want_mean).abs() / want_var.sqrt()).max()),
+                      float(((var - want_var).abs() / want_var).max()))
+            check(err < 1e-3, f"{label}: channel moments off by {err}")
+            again, again_part = ck._conv3x3x3_stats_kernel(xs, w, bias, a, halo)
+            check(torch.equal(got, again) and torch.equal(part, again_part), f"{label}: a second run differs")
+            del want, want_part, again, again_part
+        parts = [ck._conv3x3x3_stats_kernel(xs, w, bias, a, halo)[0] for xs, halo in slabs]
+        full = ck._conv3x3x3_stats_kernel(whole, w, bias, a)[0]
+        check(torch.equal(torch.cat(parts, dim=1), full), f"{name}: the slabs' outputs differ from the whole grid's")
+        del parts, full
+        xs, halo = slabs[0]
+        run = functools.partial(ck._conv3x3x3_stats_kernel, xs, w, bias, a, halo)
+        no_halo = functools.partial(ck._conv3x3x3_stats_kernel, xs, w, bias, a)
+        run_plain = functools.partial(ck._conv3x3x3_stats_plain, xs, w, bias, a, halo)
+        cudnn = lambda: ck._conv3d_replicate(xs, w, halo) + bias.to(bf)  # noqa: E731
+        ms, plain, cudnn_ms = cuda_ms(torch, run, SP_KERNEL_REPS), cuda_ms(torch, run_plain, 5), cuda_ms(torch, cudnn, 10)
+        over_no_halo = paired_ratio(torch, no_halo, run, 10)
+        no_halo_ms = cuda_ms(torch, no_halo, SP_KERNEL_REPS)
+        flop = 2 * B * n * 27 * C * F
+        n_bricks = ck.conv_n_bricks(m, Y, Z, ck.conv_brick(ck.conv_tiling(C, F)[0]))
+        # As the conv without a halo, plus the neighbour's plane read once.
+        moved = (2 * B * n * (C + F) + 2 * 27 * C * F + 4 * F + 8 * B * n_bricks * F
+                 + (8 * B * C if a is not None else 0) + 2 * B * Y * Z * C)
+        bnd = bound(moved, **{"bf16 tensor FLOP": flop})
+        log(f"    {name}: kernel {ms!r} ms ({flop / ms / 1e9!r} TFLOP/s; bound {bnd['bound_ms']!r} ms, "
+            f"{bnd['bound_kind']}), without a halo on the same slab {no_halo_ms!r} ms (halo / none in turns "
+            f"{over_no_halo!r}), plain twin {plain!r} ms, cuDNN bf16 pad+conv+bias {cudnn_ms!r} ms")
+        rows.append({"name": name, "route": "cuda", "source": "generative_turbulence_tpu_torch/csrc/fused_double_conv.cu",
+                     "replaces": f"{PALLAS}:463" if a is None else f"{PALLAS}:562",
+                     "also_replaces": f"{PALLAS}:251", "launches": 0, "max_abs_err": max(errs), "ms": ms,
+                     "plain_ms": plain, **bnd, "library_ms": cudnn_ms,
+                     "library": "cuDNN bf16 replicate pad + conv3d + bias over the slab and its halo plane",
+                     "shape": [B, m, Y, Z, C, F], "no_halo_ms": no_halo_ms, "halo_over_no_halo_in_turns": over_no_halo})
+    del whole, slabs
+    return rows
+
+
+def spatial_phase(torch, ck, root: Path, smi: str, dp_row: dict) -> tuple:
+    """Phase 6h, on 6e's dataset and beside 6e's single run.  Returns the
+    halo variants' kernel entries, the ranks' launches and the ``spatial``
+    JSON row."""
+    tic = time.perf_counter()
+    log("[6h] the chain conv's halo variant at u_net.down_0's slab at sp = 2, against its plain twin")
+    kernel_rows = halo_kernel_rows(torch, ck)
+    log(f"[6h] the paper's run at trainer.mesh_shape=[1,2]: 2 gloo ranks sharing the card "
+        f"(trainer.max_steps={DP_STEPS})")
+    torchrun = ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2"]
+    outs = finish_runs(start_runs(root, {"sp_1x2": (torchrun, {"GT_DISTRIBUTED": "1", "SMOKE_STEP_GRADS": "1"})},
+                                  SP_RUN))
+    single_out, sp_out = root / "dp" / "single_a", outs["sp_1x2"]
+    (a,), ranks = rank_rows(single_out, 1), rank_rows(sp_out, 2)
+    check(all(r["backend"] == "gloo" and r["world"] == 2 and r["device"] == "cuda:0" and r["mesh"] == [1, 2]
+              and r["train_net"] == "DistributedDataParallel" for r in ranks)
+          and [r["sp_index"] for r in ranks] == [0, 1],
+          f"sp run: {[(r['backend'], r['world'], r['device'], r['mesh'], r['sp_index']) for r in ranks]}")
+    check_rank_steps(ranks, SP_CHAIN_KERNELS)
+    log(f"  both ranks: {TRAIN_CHAIN_LAUNCHES} launches per step of {', '.join(SP_CHAIN_KERNELS)} and none of the "
+        f"convs without a halo (as expected)")
+    held = hold_ranks(torch, a, single_out, ranks, sp_out, dp_row["gradients"]["bound"], "mesh (1, 2)")
+
+    # Every step's gradients, not only the first, against the single run's:
+    # each step within the gradient bound (the larger of 3e-2 and 3x two
+    # single runs' worst leaf at that step).  The parameters within the
+    # first step's gradient bound: the runs start equal, so a leaf's
+    # difference after the steps is that of its updates, positive
+    # combinations of the steps' clipped gradients, and it shows in full in
+    # a leaf that starts at zero (a bias).  6e's rule for its NCCL rank, 3x
+    # the single runs' spread, holds a rank that computes what one process
+    # computes; the sp path rounds elsewhere (an f32 resize, moments summed
+    # over the group), and its parameters stood at 2.3-3.0x that spread in
+    # five card runs (PERF.md, PR 12), so that figure is reported.
+    grads = {name: torch.load(root / "dp" / name / "step_grads.pt") for name in ("single_a", "single_b")}
+    grads["sp"] = torch.load(sp_out / "step_grads.pt")
+    steps_held, steps_noise = (step_agreement(torch, grads[n], grads["single_a"]) for n in ("sp", "single_b"))
+    step_bounds = [max(MAX_GRAD_REL_L2, 3 * n["worst_rel_l2"]) for n in steps_noise]
+    log(f"  each step's gradients vs the single run's: cos {[h['cos'] for h in steps_held]!r}, worst leaf "
+        f"{[(h['worst_leaf'], h['worst_rel_l2']) for h in steps_held]!r} (bounds {step_bounds!r}; two single runs "
+        f"{[(n['worst_leaf'], n['worst_rel_l2']) for n in steps_noise]!r})")
+    for t, (h, b) in enumerate(zip(steps_held, step_bounds)):
+        check(h["cos"] >= MIN_GRAD_COS and h["worst_rel_l2"] <= b,
+              f"mesh (1, 2) step {t + 1}: gradient cos {h['cos']}, {h['worst_leaf']} rel_l2 {h['worst_rel_l2']} > {b}")
+    diffs = param_diffs(torch, sp_out, single_out)
+    param_leaf = max(diffs, key=diffs.get)
+    param_diff, param_bound = diffs[param_leaf], dp_row["gradients"]["bound"]
+    start_norm = float(torch.linalg.vector_norm(torch.load(single_out / "start.pt")[param_leaf].float()))
+    log(f"  parameters vs the single run's: worst leaf {param_leaf} rel_l2 {param_diff!r} (its starting norm "
+        f"{start_norm!r}; bound {param_bound!r}; 3x the single runs' spread "
+        f"{3 * dp_row['single_spread']['param_rel_l2']!r})")
+
+    # The parameters' change over the steps: in bf16 reported, with its worst
+    # leaf's steps; in f32 (one process and mesh (1, 2) side by side) each
+    # leaf held within SP_F32_CHANGE_BOUND.
+    change = change_agreement(torch, sp_out, single_out)
+    change_noise = change_agreement(torch, root / "dp" / "single_b", single_out)
+    worst = change["worst_leaf"]
+    worst_steps = {n: leaf_steps(torch, grads[n], grads["single_a"], worst) for n in ("sp", "single_b")}
+    worst_steps["ulps"] = change_in_ulps(torch, sp_out, single_out, worst)
+    del grads
+    log(f"  their change over {DP_STEPS} bf16 steps: cos {change['cos']!r}, worst leaf {worst} rel_l2 "
+        f"{change['worst_rel_l2']!r} (two single runs: cos {change_noise['cos']!r}, worst leaf "
+        f"{change_noise['worst_leaf']} {change_noise['worst_rel_l2']!r}; {worst} {change_noise['leaves'][worst]!r}); "
+        f"{worst}'s steps: {worst_steps!r}")
+    check(param_diff <= param_bound, f"mesh (1, 2): {param_leaf} {param_diff} from the single run's, beyond {param_bound}")
+    log(f"[6h] the same pair at {' '.join(SP_F32)}: one process and mesh (1, 2) side by side")
+    f32_env = {"SMOKE_STEP_GRADS": "1"}
+    f32_outs = finish_runs({**start_runs(root, {"single_f32": ([], f32_env)}, SP_F32),
+                            **start_runs(root, {"sp_f32": (torchrun, {**f32_env, "GT_DISTRIBUTED": "1"})},
+                                         [*SP_RUN, *SP_F32])})
+    (f1,), f_ranks = rank_rows(f32_outs["single_f32"], 1), rank_rows(f32_outs["sp_f32"], 2)
+    check([r["mesh"] for r in (f1, *f_ranks)] == [[1, 1], [1, 2], [1, 2]], "the f32 runs' meshes")
+    check_rank_steps([f1])
+    check_rank_steps(f_ranks, SP_CHAIN_KERNELS)
+    f32_grads = {n: torch.load(f32_outs[n] / "step_grads.pt") for n in ("single_f32", "sp_f32")}
+    f32 = {"losses": [f1["losses"], f_ranks[0]["losses"]],
+           "steps": step_agreement(torch, f32_grads["sp_f32"], f32_grads["single_f32"]),
+           "change": change_agreement(torch, f32_outs["sp_f32"], f32_outs["single_f32"]),
+           "bf16_worst_leaf_steps": leaf_steps(torch, f32_grads["sp_f32"], f32_grads["single_f32"], worst),
+           "bf16_worst_leaf_ulps": change_in_ulps(torch, f32_outs["sp_f32"], f32_outs["single_f32"], worst)}
+    del f32_grads
+    f32["bf16_worst_leaf_change_rel_l2"] = f32["change"]["leaves"][worst]
+    log(f"  f32 losses {f32['losses'][1]!r} vs one process {f32['losses'][0]!r}; each step's gradients: worst leaf "
+        f"{[(h['worst_leaf'], h['worst_rel_l2']) for h in f32['steps']]!r}; the change over {DP_STEPS} steps: cos "
+        f"{f32['change']['cos']!r}, worst leaf {f32['change']['worst_leaf']} rel_l2 "
+        f"{f32['change']['worst_rel_l2']!r} (bound {SP_F32_CHANGE_BOUND}), {worst} "
+        f"{f32['bf16_worst_leaf_change_rel_l2']!r}, its steps {f32['bf16_worst_leaf_steps']!r}, its change in ulps "
+        f"{f32['bf16_worst_leaf_ulps']!r}")
+    check(all(math.isclose(x, y, rel_tol=2e-4) for x, y in zip(*f32["losses"])),
+          f"f32 mesh (1, 2) losses {f32['losses'][1]} vs one process {f32['losses'][0]}")
+    check(f32["change"]["worst_rel_l2"] <= SP_F32_CHANGE_BOUND,
+          f"f32 mesh (1, 2): {f32['change']['worst_leaf']}'s change over {DP_STEPS} steps differs from one "
+          f"process's by {f32['change']['worst_rel_l2']} > {SP_F32_CHANGE_BOUND}")
+    for c in (change, change_noise, f32["change"]):
+        del c["leaves"]
+
+    peaks = [r["peak_gib"] for r in ranks]
+    log(f"  peak per rank {peaks!r} GiB against the single run's {a['peak_gib']!r} GiB")
+    check(max(peaks) < a["peak_gib"], f"peak per rank {peaks} GiB is not below one process's {a['peak_gib']} GiB")
+
+    want = torch.load(single_out / "samples.rank0.pt").cuda()
+    got = [torch.load(sp_out / f"samples.rank{r}.pt").cuda() for r in range(2)]
+    check(torch.equal(got[0], got[1]), "the sp ranks' samples differ")
+    # Held to the output's scale: the seeded net is untrained, and its samples
+    # grow far beyond the plain atol through the sampler.
+    sample_err = compare(torch, got[0], want, f"DDIM-{TRAINER_DDIM_STEPS} samples at mesh (1, 2) vs one process",
+                         scaled=True)
+
+    exchange = {k: [r["halo_exchange_down_0"][k] for r in ranks] for k in ("forward_ms", "backward_ms")}
+    per_step = [sorted(set(r["exchanges_per_step"])) for r in ranks]
+    log(f"  step ms per rank after the first (cold) {[r['step_ms'][1:] for r in ranks]!r} (6e's single run "
+        f"{a['step_ms'][1:]!r}); one halo exchange at down_0's slab, forward {exchange['forward_ms']!r} ms, backward "
+        f"{exchange['backward_ms']!r} ms; exchanges per step {per_step}")
+
+    log("[6h] graft_entry.dryrun_multichip(2) on the card")
+    dry_tic = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", "from generative_turbulence_tpu_torch import graft_entry as g; "
+                           "g.dryrun_multichip(2)"], cwd=ROOT, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+    dry_s = time.perf_counter() - dry_tic
+    dry = next((line for line in proc.stdout.splitlines() if line.startswith("dryrun_multichip ok:")), None)
+    check(proc.returncode == 0 and dry is not None and "mesh=(1x2) devices=2" in dry,
+          f"dryrun_multichip(2) exited {proc.returncode}: {proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    log(f"  {dry} ({dry_s!r} s)")
+
+    row = {"mesh": [1, 2], "shared_card": True, "steps": DP_STEPS,
+           "note": "two ranks share one card: their step times are no scaling figure",
+           "ranks": [{k: r[k] for k in ("rank", "sp_index", "backend", "device", "step_ms", "peak_gib", "fit_s",
+                                        "losses", "monitor", "exchanges_per_step", "halo_exchange_down_0")}
+                     for r in ranks],
+           "single": {k: a[k] for k in ("step_ms", "peak_gib", "losses", "monitor")},
+           **held, "step_gradients": steps_held, "step_gradients_single_vs_single": steps_noise,
+           "step_gradient_bounds": step_bounds, "param_rel_l2": param_diff, "param_leaf": param_leaf,
+           "param_leaf_start_norm": start_norm, "param_bound": param_bound,
+           "param_change": {**change, "single_vs_single": change_noise, "worst_leaf_steps": worst_steps},
+           "f32": {**f32, "change_bound": SP_F32_CHANGE_BOUND},
+           "samples_max_abs_err": sample_err, "dryrun": dry, "dryrun_s": dry_s,
+           "kernels": [{k: r[k] for k in ("name", "ms", "no_halo_ms", "halo_over_no_halo_in_turns", "plain_ms",
+                                          "bound_ms", "library_ms", "max_abs_err")} for r in kernel_rows],
+           "card": smi, "phase_s": time.perf_counter() - tic}
+    launches = {"ranks": [r["launches"] for r in ranks], "per_step": [r["launches_per_step"] for r in ranks]}
+    return kernel_rows, launches, row
+
+
 # Phase 6f, the study scripts: the port's study entry points of
 # generative_turbulence_tpu_torch/scripts on what phases 6c-6e leave behind
 # (6e's dataset with its two val cases, 6c's runs, 6d's eval_ckpt store).
@@ -2365,7 +2752,8 @@ def study_scripts_phase(torch, ck, root: Path, smi: str, unet_fwd_ms: float) -> 
         n_unet = result["iters"] * per_call
         evaluations = n_unet + per_call  # the warm-up call counts too
         counts = launches[mode] = row["launches"][name]
-        want = dict({k: evaluations * len(ENGAGED_BLOCKS) for k in CHAIN_KERNELS}, flash_attention=0, conv3d_3x3=0)
+        want = dict({k: evaluations * len(ENGAGED_BLOCKS) for k in CHAIN_KERNELS}, flash_attention=0, conv3d_3x3=0,
+                    **NO_HALO)
         check(counts == want, f"{name}: launches {counts}, expected {want} ({evaluations} U-Net evaluations)")
         entry = next((v for v in result.values() if isinstance(v, dict)), None)
         check(entry is not None, f"{name}: no device entry in {result}")
@@ -2707,7 +3095,9 @@ def multi_card_main() -> int:
     one NCCL rank per card under ``torch.distributed.run``: the backend and
     a card per rank, 7 chain launches per rank per step, the first step's
     all-reduced gradients held against the single run's (the x 1.1
-    gradients refused), the losses and the merged ``val/tke``; prints one
+    gradients refused), the losses and the merged ``val/tke``; with four
+    cards the same at ``trainer.mesh_shape`` (2, 2) and (1, 4), where the
+    halo variants launch, with peak memory per rank; prints one
     ``multi_card`` JSON line and the card's name and power limit."""
     if not (ROOT / "generative_turbulence_tpu_torch").is_dir():
         log("error: run from a checkout of the repository (generative_turbulence_tpu_torch/ missing)")
@@ -2743,6 +3133,24 @@ def multi_card_main() -> int:
                   f"ranks: {[(r['backend'], r['world'], r['device']) for r in ranks]}")
             check_rank_steps([a, *ranks])
             held = hold_ranks(torch, a, outs["single"], ranks, outs["nccl"], MAX_GRAD_REL_L2, f"{n_cards} NCCL ranks")
+            meshes = {}
+            for mesh in ([(2, 2), (1, 4)] if n_cards >= 4 else []):
+                name = f"mesh_{mesh[0]}x{mesh[1]}"
+                launcher = (["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4"],
+                            {"GT_DISTRIBUTED": "1"})
+                out = finish_runs(start_runs(root, {name: launcher},
+                                             [*extra, f"trainer.mesh_shape=[{mesh[0]},{mesh[1]}]"]))[name]
+                mesh_ranks = rank_rows(out, 4)
+                check(all(r["backend"] == "nccl" and r["mesh"] == list(mesh) for r in mesh_ranks),
+                      f"{name}: {[(r['backend'], r['mesh']) for r in mesh_ranks]}")
+                check_rank_steps(mesh_ranks, SP_CHAIN_KERNELS)
+                meshes[name] = {
+                    **hold_ranks(torch, a, outs["single"], mesh_ranks, out, MAX_GRAD_REL_L2, f"{name} over NCCL"),
+                    "ranks": [{k: r[k] for k in ("rank", "dp_index", "sp_index", "device", "step_ms", "peak_gib",
+                                                 "losses", "exchanges_per_step", "halo_exchange_down_0")}
+                              for r in mesh_ranks]}
+                log(f"  {name}: step ms per rank {[r['step_ms'][1:] for r in mesh_ranks]!r}, peak "
+                    f"{[r['peak_gib'] for r in mesh_ranks]!r} GiB (one process {a['peak_gib']!r} GiB)")
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1
@@ -2750,7 +3158,7 @@ def multi_card_main() -> int:
            "ranks": [{k: r[k] for k in ("rank", "world", "backend", "device", "step_ms", "peak_gib", "fit_s",
                                          "allreduce_ms", "losses", "monitor")} for r in ranks],
            "single": {k: a[k] for k in ("device", "step_ms", "peak_gib", "fit_s", "losses", "monitor")},
-           **held, "n_params": a["n_params"], "seconds": time.perf_counter() - tic}
+           **held, "meshes": meshes, "n_params": a["n_params"], "seconds": time.perf_counter() - tic}
     print(smi)
     print(json.dumps({"multi_card": row, "card": smi}))
     return 0
@@ -2811,6 +3219,9 @@ def main() -> int:
             log(f"  phase 6d took {ckpt_rows['phase_s']!r} s")
             dp_launches, dp_rows = data_parallel_phase(torch, ck, Path(tmp), smi)
             log(f"  phase 6e took {dp_rows['phase_s']!r} s")
+            halo_rows, sp_launches, sp_rows = spatial_phase(torch, ck, Path(tmp), smi, dp_rows)
+            kernels += halo_rows
+            log(f"  phase 6h took {sp_rows['phase_s']!r} s")
             profile_launches, study_rows = study_scripts_phase(torch, ck, Path(tmp), smi, timings["fwd_ms"])
             log(f"  phase 6f took {study_rows['phase_s']!r} s")
         with tempfile.TemporaryDirectory() as tmp:
@@ -2834,7 +3245,8 @@ def main() -> int:
                              + sum(counts[name] for counts in ckpt_launches.values())
                              + sum(counts[name] for counts in dp_launches["gloo_2"] + dp_launches["nccl_1"])
                              + sum(counts[name] for counts in profile_launches.values())
-                             + toolchain_launches[name])
+                             + toolchain_launches[name]
+                             + sum(counts[name] for counts in sp_launches["ranks"]))
         entry["launches_by_path"] = {
             "4_levels": launches4[name], "2_levels": launches2[name],
             "train_4_levels": train4["launches_per_step"][name],
@@ -2855,8 +3267,11 @@ def main() -> int:
                 for mode in profile_launches},
             "toolchain_trainer_per_step": [c[name] for c in toolchain_rows["launches_per_step"]],
             "toolchain_trainer_per_validation": toolchain_rows["launches_per_validation"][name],
+            "sp_1x2_per_rank_per_step": [[c[name] for c in rank] for rank in sp_launches["per_step"]],
+            "sp_1x2_per_rank": [counts[name] for counts in sp_launches["ranks"]],
         }
     log(f"[7] card: {smi}")
+    print(json.dumps({"spatial": sp_rows, "card": smi}))
     print(json.dumps({"toolchain": toolchain_rows, "card": smi}))
     print(json.dumps({"study_scripts": study_rows, "card": smi}))
     print(json.dumps({"distributed": dp_rows, "card": smi}))

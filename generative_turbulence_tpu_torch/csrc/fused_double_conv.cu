@@ -10,6 +10,11 @@
 //                                                            conv3x3x3_kernel
 //   - _affine_silu_std (_affine_silu_std_kernel)          -> affine_silu_kernel
 // The GroupNorm + FiLM fold between them (_gn_affine) stays a few small torch ops.
+// On the spatial axis (a grid-x slab per rank) the STATS conv takes its x halo
+// from two plane pointers (HALO = true, the "halo variant"): a halo read at
+// x = -1 or x = X takes the neighbour's plane, and only at a global x edge,
+// where the pointer is null, does the clamp stay; with HALO = false the kernel
+// is the one without the pointers.
 // The same conv kernel with STATS = false replaces the standalone conv op
 // conv3d_3x3 (_conv3d_3x3_pallas_raw, _conv3x3_kernel, and its _pad_flatten
 // prep): no moments epilogue and no partials buffer, x read as bf16 or f32
@@ -325,24 +330,30 @@ __device__ __forceinline__ void load_prologue(float (&pa)[8], float (&pb)[8],
 
 // Stage one unit's input halo (a brick's (TX + 2) x (TY + 2) x (TZ + 2)
 // voxels, channels c0 .. c0 + KC - 1) into buf.  Clamped coordinates are the
-// replicate pad; channels at and beyond C are zero.  bf16 vectors go by
+// replicate pad; channels at and beyond C are zero.  HALO: x = -1 reads lob's
+// plane and x = X hib's (this batch element's (Y, Z, C) planes) where they
+// are not null.  bf16 vectors go by
 // cp.async (committed here, waited for by the caller); f32 input and C not a
 // multiple of 8 by a synchronous, converting, masked load.  A thread stages
 // the vectors v = tid + k * THREADS, the same ones it passes through the
 // prologue, so it needs its own cp.async wait and no barrier before that.
-template <class G, int KC, typename In>
-__device__ __forceinline__ void stage_halo(unsigned char* buf, const In* __restrict__ xb, int x0,
-                                           int y0, int z0, int c0, int X, int Y, int Z, int C,
-                                           int tid) {
+template <class G, int KC, bool HALO, typename In>
+__device__ __forceinline__ void stage_halo(unsigned char* buf, const In* __restrict__ xb,
+                                           const In* __restrict__ lob, const In* __restrict__ hib,
+                                           int x0, int y0, int z0, int c0, int X, int Y, int Z,
+                                           int C, int tid) {
   constexpr int VPR = KC / 8;  // 16-byte vectors per halo voxel
   const bool c_vec = (C % 8) == 0;
   for (int v = tid; v < G::HROWS * VPR; v += G::THREADS) {
     const int hr = v / VPR, cv = v % VPR;
-    const int gx = clampi(x0 + hr / (G::HY * G::HZ) - 1, X - 1);
+    const int rx = x0 + hr / (G::HY * G::HZ) - 1;
+    const int gx = clampi(rx, X - 1);
     const int gy = clampi(y0 + hr / G::HZ % G::HY - 1, Y - 1);
     const int gz = clampi(z0 + hr % G::HZ - 1, Z - 1);
     const int c = c0 + 8 * cv;
     const In* src = xb + ((int64_t)(gx * Y + gy) * Z + gz) * C + c;
+    if (HALO && rx < 0 && lob != nullptr) src = lob + ((int64_t)gy * Z + gz) * C + c;
+    if (HALO && rx >= X && hib != nullptr) src = hib + ((int64_t)gy * Z + gz) * C + c;
     unsigned char* dst = buf + cv * G::PLANE + hr * 16;
     alignas(16) bf16 v8[8];
     if (c_vec && c < C) {
@@ -409,9 +420,11 @@ struct Work {
 // buffer by cp.async and passed through the prologue between the wgmmas;
 // thread 0 keeps the B ring filled by TMA bulk copies; the epilogue reuses
 // the computed unit's buffer as its output tile.
-template <int BN, int KC, bool SILU_IN, bool STATS, typename In, typename Out>
+template <int BN, int KC, bool SILU_IN, bool STATS, bool HALO, typename In, typename Out>
 __global__ void __launch_bounds__(Geometry<BN, KC, Out>::THREADS, 1)
 conv3x3x3_kernel(const In* __restrict__ x,         // (B, X, Y, Z, C)
+                 const In* __restrict__ lo,        // (B, 1, Y, Z, C) or null if HALO
+                 const In* __restrict__ hi,        // (B, 1, Y, Z, C) or null if HALO
                  const bf16* __restrict__ wpack,   // packed (3, 3, 3, C, F)
                  const float* __restrict__ bias,   // (F,)
                  const float* __restrict__ pro_a,  // (B, C) if SILU_IN
@@ -478,6 +491,9 @@ conv3x3x3_kernel(const In* __restrict__ x,         // (B, X, Y, Z, C)
   __syncthreads();
 
   const int64_t BC = (int64_t)X * Y * Z * C;  // elements of x per batch element
+  const int64_t PC = (int64_t)Y * Z * C;      // elements of a halo plane
+  auto lo_of = [&](int b) { return HALO && lo != nullptr ? lo + b * PC : nullptr; };
+  auto hi_of = [&](int b) { return HALO && hi != nullptr ? hi + b * PC : nullptr; };
   constexpr int NV = (G::HROWS * (KC / 8) + THREADS - 1) / THREADS;  // own vectors
   constexpr int P0 = 9;  // the prologue runs between taps P0 .. 26
 
@@ -501,7 +517,8 @@ conv3x3x3_kernel(const In* __restrict__ x,         // (B, X, Y, Z, C)
   };
   {
     const Work<G> first(w, nby, nbz, n_bricks, n_ft);
-    stage_halo<G, KC>(smem, x + first.b * BC, first.x0, first.y0, first.z0, 0, X, Y, Z, C, tid);
+    stage_halo<G, KC, HALO>(smem, x + first.b * BC, lo_of(first.b), hi_of(first.b), first.x0,
+                            first.y0, first.z0, 0, X, Y, Z, C, tid);
     cp_async_wait_all();
     if (SILU_IN) {
       load_prologue(pa, pb, pro_a, pro_b, first.b, 8 * (tid % (KC / 8)), C);
@@ -524,7 +541,8 @@ conv3x3x3_kernel(const In* __restrict__ x,         // (B, X, Y, Z, C)
     const bool has_next = nw < total;
     if (has_next) {
       const Work<G> nx(nw, nby, nbz, n_bricks, n_ft);
-      stage_halo<G, KC>(nbuf, x + nx.b * BC, nx.x0, nx.y0, nx.z0, nch * KC, X, Y, Z, C, tid);
+      stage_halo<G, KC, HALO>(nbuf, x + nx.b * BC, lo_of(nx.b), hi_of(nx.b), nx.x0, nx.y0, nx.z0,
+                              nch * KC, X, Y, Z, C, tid);
       if (SILU_IN) load_prologue(pa, pb, pro_a, pro_b, nx.b, nch * KC + 8 * (tid % (KC / 8)), C);
     }
     if (ch == 0) {
@@ -745,12 +763,13 @@ affine_silu_kernel(const bf16* __restrict__ h, const float* __restrict__ a,
   }
 }
 
-template <int BN, int KC, bool SILU_IN, bool STATS, typename In, typename Out>
-cudaError_t launch_conv(const void* x, const void* w, const void* bias, const void* pro_a,
-                        const void* pro_b, void* out, void* stats, int B, int X, int Y, int Z,
-                        int C, int F, cudaStream_t stream) {
+template <int BN, int KC, bool SILU_IN, bool STATS, bool HALO, typename In, typename Out>
+cudaError_t launch_conv(const void* x, const void* lo, const void* hi, const void* w,
+                        const void* bias, const void* pro_a, const void* pro_b, void* out,
+                        void* stats, int B, int X, int Y, int Z, int C, int F,
+                        cudaStream_t stream) {
   using G = Geometry<BN, KC, Out>;
-  auto kernel = conv3x3x3_kernel<BN, KC, SILU_IN, STATS, In, Out>;
+  auto kernel = conv3x3x3_kernel<BN, KC, SILU_IN, STATS, HALO, In, Out>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::BYTES);
   if (err != cudaSuccess) return err;
@@ -768,21 +787,24 @@ cudaError_t launch_conv(const void* x, const void* w, const void* bias, const vo
   if (total >= (int64_t)1 << 31) return cudaErrorInvalidValue;
   const int blocks = (int)(total < (int64_t)sms * per_sm ? total : (int64_t)sms * per_sm);
   kernel<<<blocks, G::THREADS, G::BYTES, stream>>>(
-      static_cast<const In*>(x), static_cast<const bf16*>(w), static_cast<const float*>(bias),
+      static_cast<const In*>(x), static_cast<const In*>(lo), static_cast<const In*>(hi),
+      static_cast<const bf16*>(w), static_cast<const float*>(bias),
       static_cast<const float*>(pro_a), static_cast<const float*>(pro_b), static_cast<Out*>(out),
       static_cast<float*>(stats), B, X, Y, Z, C, F);
   return cudaGetLastError();
 }
 
 // (bn, kc) as ops/cuda_kernels.py::conv_tiling chose them and packed w for.
-template <bool SILU_IN, bool STATS, typename In, typename Out>
-cudaError_t launch_conv_tiled(int bn, int kc, const void* x, const void* w, const void* bias,
-                              const void* pro_a, const void* pro_b, void* out, void* stats,
-                              int B, int X, int Y, int Z, int C, int F, cudaStream_t s) {
-#define GT_CONV_CASE(BN_, KC_)                                                              \
-  if (bn == BN_ && kc == KC_)                                                               \
-    return launch_conv<BN_, KC_, SILU_IN, STATS, In, Out>(x, w, bias, pro_a, pro_b, out, \
-                                                          stats, B, X, Y, Z, C, F, s);
+template <bool SILU_IN, bool STATS, bool HALO, typename In, typename Out>
+cudaError_t launch_conv_tiled(int bn, int kc, const void* x, const void* lo, const void* hi,
+                              const void* w, const void* bias, const void* pro_a,
+                              const void* pro_b, void* out, void* stats, int B, int X, int Y,
+                              int Z, int C, int F, cudaStream_t s) {
+#define GT_CONV_CASE(BN_, KC_)                                                               \
+  if (bn == BN_ && kc == KC_)                                                                \
+    return launch_conv<BN_, KC_, SILU_IN, STATS, HALO, In, Out>(x, lo, hi, w, bias, pro_a,   \
+                                                                pro_b, out, stats, B, X, Y, \
+                                                                Z, C, F, s);
   GT_CONV_CASE(32, 32)
   GT_CONV_CASE(64, 32)
   GT_CONV_CASE(128, 32)
@@ -805,18 +827,26 @@ extern "C" void gt_conv3x3x3_brick(int bn, int* xyz) {
 // Replicate-padded SAME 3x3x3 conv + bias with per-brick channel moments.
 // w: pack_conv_weights(w, bn, kc); pro_a/pro_b: nullptr, or (B, C) f32 for
 // the silu(a*x + b) input prologue; stats: (B, n_bricks, 2, F) f32, row 0 =
-// sum, row 1 = sum of squares.
-extern "C" int gt_conv3x3x3_stats(const void* x, const void* w, const void* bias,
-                                  const void* pro_a, const void* pro_b, void* out,
-                                  void* stats, int B, int X, int Y, int Z, int C, int F,
-                                  int bn, int kc, void* stream) {
+// sum, row 1 = sum of squares.  lo/hi: nullptr, or the (B, 1, Y, Z, C) bf16
+// planes before and after x along grid-x (the halo variant, if either is
+// set; the prologue maps them too).
+extern "C" int gt_conv3x3x3_stats(const void* x, const void* lo, const void* hi, const void* w,
+                                  const void* bias, const void* pro_a, const void* pro_b,
+                                  void* out, void* stats, int B, int X, int Y, int Z, int C,
+                                  int F, int bn, int kc, void* stream) {
   cudaGetLastError();  // start from a clean error state
   auto s = static_cast<cudaStream_t>(stream);
-  if (pro_a != nullptr)
-    return (int)launch_conv_tiled<true, true, bf16, bf16>(bn, kc, x, w, bias, pro_a, pro_b, out,
-                                                          stats, B, X, Y, Z, C, F, s);
-  return (int)launch_conv_tiled<false, true, bf16, bf16>(bn, kc, x, w, bias, pro_a, pro_b, out,
-                                                         stats, B, X, Y, Z, C, F, s);
+  const bool halo = lo != nullptr || hi != nullptr;
+#define GT_STATS_CASE(SILU_IN_, HALO_)                                                        \
+  if ((pro_a != nullptr) == SILU_IN_ && halo == HALO_)                                      \
+    return (int)launch_conv_tiled<SILU_IN_, true, HALO_, bf16, bf16>(                       \
+        bn, kc, x, lo, hi, w, bias, pro_a, pro_b, out, stats, B, X, Y, Z, C, F, s);
+  GT_STATS_CASE(true, false)
+  GT_STATS_CASE(false, false)
+  GT_STATS_CASE(true, true)
+  GT_STATS_CASE(false, true)
+#undef GT_STATS_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // Replicate-padded SAME 3x3x3 conv + bias without moments (conv3d_3x3).
@@ -828,11 +858,10 @@ extern "C" int gt_conv3d_3x3(const void* x, const void* w, const void* bias, voi
   cudaGetLastError();
   auto s = static_cast<cudaStream_t>(stream);
   if (x_f32)
-    return (int)launch_conv_tiled<false, false, float, float>(bn, kc, x, w, bias, nullptr,
-                                                              nullptr, out, nullptr, B, X, Y,
-                                                              Z, C, F, s);
-  return (int)launch_conv_tiled<false, false, bf16, bf16>(bn, kc, x, w, bias, nullptr, nullptr,
-                                                          out, nullptr, B, X, Y, Z, C, F, s);
+    return (int)launch_conv_tiled<false, false, false, float, float>(
+        bn, kc, x, nullptr, nullptr, w, bias, nullptr, nullptr, out, nullptr, B, X, Y, Z, C, F, s);
+  return (int)launch_conv_tiled<false, false, false, bf16, bf16>(
+      bn, kc, x, nullptr, nullptr, w, bias, nullptr, nullptr, out, nullptr, B, X, Y, Z, C, F, s);
 }
 
 // out_f32 != 0: out is f32, else bf16.  h: (B, S, F) bf16; a, c: (B, F) f32;

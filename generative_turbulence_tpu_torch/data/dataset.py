@@ -12,12 +12,14 @@ also the copy of each batch to the device (``Batch.to``: pinned host memory,
 
 Left out, as workarounds for the TPU host link and XLA recompiles: the cell
 bucket, the pooled host buffers (``HostBufferPool``, ``collate_pooled``), the
-device-resident frame cache and the bf16 transfer.  The rank and world size
-of multi-process runs come from ``torch.distributed`` when it is initialised:
-every rank then draws the same global train batches and reads only its own
-rows of each (``parallel.mesh.local_rows``), or, with ``shard_by_host``, its
-own cases at the full batch, all ranks taking as many batches as the
-shortest shard holds.
+device-resident frame cache and the bf16 transfer.  Multi-process runs shard
+by the rank's dp index and the number of dp groups (``parallel.mesh``:
+``(rank, world)`` of ``torch.distributed`` without a spatial axis; the sp
+ranks of one group read the same rows and cases): every dp group then draws
+the same global train batches and reads only its own rows of each
+(``parallel.mesh.local_rows``), or, with ``shard_by_host``, its own cases at
+the full batch, all ranks taking as many batches as the shortest shard
+holds.
 """
 
 from __future__ import annotations
@@ -33,8 +35,8 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..parallel.distributed import process_rank_and_world, reduce_host_value
-from ..parallel.mesh import local_rows
+from ..parallel.distributed import reduce_host_value
+from ..parallel.mesh import dp_rank_and_size, local_rows
 from .grid import GridMap
 from .schema import CaseMetadata, CaseRepository, FieldStats, find_data_files
 from .variables import Variable
@@ -247,9 +249,9 @@ class EvaluationBatches:
 
 
 def shard_files_by_host(files: List[Path], enabled: bool) -> List[Path]:
-    """Round-robin the case files over the processes of a multi-process run
-    (whole cases per process; a process left without one wraps around)."""
-    rank, world = process_rank_and_world()
+    """Round-robin the case files over the dp groups of a multi-process run
+    (whole cases per group; a group left without one wraps around)."""
+    rank, world = dp_rank_and_size()
     if not enabled or world <= 1:
         return files
     return files[rank::world] or [files[rank % len(files)]]
@@ -370,7 +372,7 @@ class DataModule:
         sampler = GeometryPureBatches(
             self.train_dataset, batch_size=self.batch_size, shuffle=True, seed=self.seed, epoch=epoch
         )
-        rank, world = process_rank_and_world()
+        rank, world = dp_rank_and_size()
         if self.shard_by_host:
             # A rank that ran out of batches first would leave the others
             # waiting in the gradients' all-reduce.
@@ -390,7 +392,7 @@ class DataModule:
         return self._n_train_batches
 
     def _eval_shard(self) -> Tuple[int, int]:
-        return process_rank_and_world() if self.shard_eval else (0, 1)
+        return dp_rank_and_size() if self.shard_eval else (0, 1)
 
     def first_val_case(self) -> Optional[str]:
         """Name of the case owning the globally-first val batch (from the

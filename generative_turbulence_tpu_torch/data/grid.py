@@ -4,17 +4,21 @@ The simulation stores only in-domain cell values ``(B, n_cells, F)``; the
 models work on dense padded voxel grids ``(B, X, Y, Z, F)`` (channels last).
 ``GridMap`` holds the per-case index tensors, on one device, that move values
 between the two.  Port of ``generative_turbulence_tpu/data/grid.py`` without
-its LRU cache and cell bucketing, which work around XLA recompiles.
+its LRU cache and cell bucketing, which work around XLA recompiles.  On the
+spatial axis (``parallel.spatial``) a rank works on an x slab of the dense
+grid: ``x_slab_view`` gives the map its masks see there, and ``masked_mean``
+sums over the group.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..parallel.spatial import Slab, sp_all_reduce_sum
 from .schema import CaseMetadata
 from .variables import Variable, total_dims
 
@@ -29,6 +33,8 @@ class GridMap:
       cell_types      (X, Y, Z) int64 cell-type ids
       inside_mask     (X, Y, Z) bool
       h               (3,)      float32 physical cell size
+      slab            None, or the x slab of a rank of the spatial axis
+                      (``x_slab_view``)
     """
 
     cell_idx: torch.Tensor
@@ -39,6 +45,7 @@ class GridMap:
     h: torch.Tensor
     shape: Tuple[int, int, int]
     n_features: int
+    slab: Optional[Slab] = None
 
     @staticmethod
     def from_metadata(
@@ -100,9 +107,21 @@ def apply_inside(x: torch.Tensor, grid: GridMap) -> torch.Tensor:
     return torch.where(grid.inside_mask[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def x_slab_view(grid: GridMap, slab: Slab) -> GridMap:
+    """``grid`` as a rank of the spatial axis sees it on its ``slab``: the
+    slab's ``inside_mask`` and the slab itself; the whole grid's
+    ``cell_types`` (the model conditions on the whole map), ``shape``,
+    ``n_cells`` and index tensors (``embed_cells`` and ``gather_cells`` work
+    on whole grids)."""
+    return dataclasses.replace(grid, inside_mask=grid.inside_mask[slice(*slab.planes)], slab=slab)
+
+
 def masked_mean(x: torch.Tensor, grid: GridMap, *, batch_ndim: int = 1) -> torch.Tensor:
     """Mean over in-domain cells and channels, keeping leading batch axes:
-    (B..., X, Y, Z, F) -> (B...,)."""
+    (B..., X, Y, Z, F) -> (B...,).  On an x slab of the spatial axis (with
+    ``x_slab_view``'s grid) the slab's sums are summed over the group."""
     mask = grid.inside_mask[..., None].to(x.dtype)
     total = (x * mask).sum(dim=tuple(range(batch_ndim, x.ndim)))
+    if grid.slab is not None:
+        total = sp_all_reduce_sum(total, grid.slab.axis)
     return total / (grid.n_cells * x.shape[-1])

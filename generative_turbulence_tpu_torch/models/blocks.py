@@ -11,6 +11,16 @@ The ResnetBlock core takes the hand-written Hopper chain
 ``remat`` the U-Net runs each ResnetBlock under ``torch.utils.checkpoint``
 while gradients are recorded (flax's ``nn.remat``): the backward recomputes
 the block's forward instead of keeping its activations.
+
+On the spatial axis (``parallel.spatial``; the JAX package's ``sp`` mesh
+axis, where XLA partitions the same modules) every activation is this
+rank's x slab, and the modules that reach beyond it take the input's
+``Slab`` as ``slab``: ``Conv3d`` takes its x halo from the neighbours (the
+replicate pad stays at the global x edges and in y and z), ``GroupNorm``
+sums its moments over the group, the chain exchanges halos itself, the
+attention gathers the (smallest) centre grid and keeps this rank's rows of
+its output, and the U-Net's resizes map global planes.  1x1 convs, FiLM and
+``Dense`` stay local.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import cuda_kernels
 from ..ops.attention import efficient_linear_attention, multihead_attention
 from ..ops.interp import downsample_size, resize_trilinear
+from ..parallel.spatial import Slab, gather_x, halo_exchange, replicate_pad, slab_of, sp_var_mean
 
 ActFn = Callable[[torch.Tensor], torch.Tensor]
 
@@ -131,12 +142,13 @@ class Conv3d(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, slab: Optional[Slab] = None) -> torch.Tensor:
+        """``slab``: x is this rank's x slab of the spatial axis, padded in
+        x with its neighbours' planes."""
         k = self.weight.shape[-1]
         pad = (k - 1) // 2 * self.dilation
-        h = _channels_first(x)
-        if pad > 0:
-            h = F.pad(h, (pad,) * 6, mode="replicate")
+        halo = None if slab is None or pad == 0 else halo_exchange(x, pad, slab.axis)
+        h = replicate_pad(x, pad, halo)
         dt = _compute_dtype(self.dtype, x)
         y = _channels_last(F.conv3d(h.to(dt), self.weight.to(dt), dilation=self.dilation))
         if self.bias is not None:
@@ -160,11 +172,17 @@ class GroupNorm(nn.Module):
         nn.init.ones_(self.weight)
         nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, slab: Optional[Slab] = None) -> torch.Tensor:
+        """``slab``: x is this rank's x slab of the spatial axis; the
+        group's moments, in two passes."""
         B, C = x.shape[0], x.shape[-1]
         G = self.num_groups
         xg = x.float().reshape(B, -1, G, C // G)
-        var, mean = torch.var_mean(xg, dim=(1, 3), keepdim=True, correction=0)
+        if slab is None:
+            var, mean = torch.var_mean(xg, dim=(1, 3), keepdim=True, correction=0)
+        else:
+            n = slab.X * x.shape[-3] * x.shape[-2] * (C // G)
+            var, mean = sp_var_mean(xg, (1, 3), n, slab.axis)
         y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
         y = y * self.weight + self.bias
         return y.to(_compute_dtype(self.dtype, x))
@@ -193,9 +211,12 @@ class ConvBlock(nn.Module):
         self.norm = make_norm(norm_type, features, dtype)
 
     def forward(
-        self, x: torch.Tensor, scale_shift: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self,
+        x: torch.Tensor,
+        scale_shift: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        slab: Optional[Slab] = None,
     ) -> torch.Tensor:
-        x = self.norm(self.conv(x))
+        x = self.norm(self.conv(x, slab), slab)
         if scale_shift is not None:
             scale, shift = scale_shift
             x = (scale[:, None, None, None, :] + 1.0) * x + shift[:, None, None, None, :]
@@ -227,13 +248,17 @@ class ResnetBlock(nn.Module):
         self.block2 = ConvBlock(features, features, actfn, norm_type, dtype)
         self.skip = Conv(in_features, features, 1, dtype=dtype) if in_features != features else None
 
-    def forward(self, x: torch.Tensor, c: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, c: Optional[torch.Tensor] = None, slab: Optional[Slab] = None
+    ) -> torch.Tensor:
+        """``slab``: x is this rank's x slab of the spatial axis (the
+        chain's gate decides on the whole grid)."""
         scale_shift = None
         if c is not None:
             scale_shift = self.film(c).chunk(2, dim=-1)
 
         if self.actfn is F.silu and cuda_kernels.fused_block_applicable(
-            x, x.shape[-1], self.features
+            x, x.shape[-1], self.features, slab
         ):
             b1, b2 = self.block1, self.block2
             scale, shift = scale_shift if scale_shift is not None else (None, None)
@@ -243,10 +268,10 @@ class ResnetBlock(nn.Module):
                 b1.norm.weight, b1.norm.bias, scale, shift,
                 b2.conv.weight.permute(2, 3, 4, 1, 0), b2.conv.bias,
                 b2.norm.weight, b2.norm.bias,
-                self.num_groups, 1e-5,
+                self.num_groups, 1e-5, slab,
             )
         else:
-            h = self.block2(self.block1(x, scale_shift))
+            h = self.block2(self.block1(x, scale_shift, slab), slab=slab)
 
         if self.skip is not None:
             x = self.skip(x)
@@ -274,7 +299,15 @@ class VoxelAttention(nn.Module):
         self.to_qkv = Conv(in_features, 3 * hidden, 1, use_bias=False, dtype=dtype)
         self.to_out = Conv(hidden, in_features, 1, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, slab: Optional[Slab] = None) -> torch.Tensor:
+        """``slab``: x is this rank's x slab of the spatial axis; the grid is
+        gathered over the group, attended as a whole, and this rank's
+        planes of the output kept."""
+        if slab is not None:
+            return slab_of(self._attend(gather_x(x, slab)), slab)
+        return self._attend(x)
+
+    def _attend(self, x: torch.Tensor) -> torch.Tensor:
         B, X, Y, Z, _ = x.shape
         hidden = self.heads * self.dim_head
         qkv = self.to_qkv(x)
@@ -347,27 +380,34 @@ class UNet(nn.Module):
             self.add_module(f"up_{i}", block(ch + dim * 2 ** (i + 1), dim * 2**i))
             ch = dim * 2**i
 
-    def _block(self, name: str, x: torch.Tensor, c: Optional[torch.Tensor]) -> torch.Tensor:
+    def _block(self, name: str, x: torch.Tensor, c: Optional[torch.Tensor], slab: Optional[Slab]) -> torch.Tensor:
         block = getattr(self, name)
         if self.remat and torch.is_grad_enabled():
             # The recompute runs in a profiler range of its own.
             contexts = lambda: (contextlib.nullcontext(), record_function("remat recompute"))  # noqa: E731
-            return checkpoint(block, x, c, use_reentrant=False, context_fn=contexts)
-        return block(x, c)
+            return checkpoint(block, x, c, slab, use_reentrant=False, context_fn=contexts)
+        return block(x, c, slab)
 
-    def forward(self, x: torch.Tensor, c: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, c: Optional[torch.Tensor] = None, slab: Optional[Slab] = None
+    ) -> torch.Tensor:
+        """``slab``: x is this rank's x slab of the spatial axis; the levels'
+        sizes are the whole grid's, each level's slab ``slab.at`` its x."""
+        shape = (x.shape[-4] if slab is None else slab.X, *x.shape[-3:-1])
+        at = lambda X: None if slab is None else slab.at(X)  # noqa: E731
         skips = []
         for i in range(self.levels):
-            x = self._block(f"down_{i}", x, c)
-            skips.append(x)
-            x = resize_trilinear(x, downsample_size(x.shape[-4:-1]))
+            x = self._block(f"down_{i}", x, c, at(shape[0]))
+            skips.append((x, shape))
+            size = downsample_size(shape)
+            x, shape = resize_trilinear(x, size, slab=at(shape[0])), size
 
-        x = self._block("center_in", x, c)
-        x = x + self.center_attention(self.center_norm(x))
-        x = self._block("center_out", x, c)
+        x = self._block("center_in", x, c, at(shape[0]))
+        x = x + self.center_attention(self.center_norm(x, at(shape[0])), at(shape[0]))
+        x = self._block("center_out", x, c, at(shape[0]))
 
         for i in reversed(range(self.levels)):
-            skip = skips.pop()
-            x = resize_trilinear(x, skip.shape[-4:-1])
-            x = self._block(f"up_{i}", torch.cat([x, skip], dim=-1), c)
+            skip, skip_shape = skips.pop()
+            x, shape = resize_trilinear(x, skip_shape, slab=at(shape[0])), skip_shape
+            x = self._block(f"up_{i}", torch.cat([x, skip], dim=-1), c, at(shape[0]))
         return x

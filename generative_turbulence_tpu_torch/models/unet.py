@@ -10,7 +10,10 @@ Unlike flax, torch modules fix their input widths at construction, so the
 model takes ``in_features`` and ``c_global_features``, and a model with
 ``conditioning`` must be called with ``cell_types``.  ``remat`` (flax's
 ``nn.remat`` of the U-Net's ResnetBlocks) takes effect only while gradients
-are recorded.
+are recorded.  On the spatial axis (``parallel.spatial``) x is this rank's
+x ``slab`` of the grid whose whole cell-type map ``cell_types`` is: the
+local conditioning and the geometry embedding are computed from the whole
+map, and the slab of the conditioning joins the slab of x.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.spatial import Slab
 from .blocks import Conv, Conv3d, Dense, GroupNorm, ResnetBlock, UNet
 from .conditioning import Conditioning
 from .embeddings import NyquistFrequencyEmbedding, SinusoidalTimeEmbedding
@@ -129,14 +133,21 @@ class DenoisingModel(nn.Module):
         t: torch.Tensor,
         cell_types: Optional[torch.Tensor] = None,
         c_global: Optional[torch.Tensor] = None,
+        *,
+        slab: Optional[Slab] = None,
     ) -> torch.Tensor:
         """
         x:          (B, X, Y, Z, F) noisy normalized fields
         t:          (B,) integer timesteps
         cell_types: (X, Y, Z) integer cell types (shared across the batch)
         c_global:   optional (B, G) global features
+        slab:       None, or x's x slab of the spatial axis (x then holds
+                    those planes of the grid of ``cell_types``)
         """
         B = x.shape[0]
+        if slab is not None and (cell_types is None or cell_types.shape[-3] != slab.X):
+            raise ValueError(f"an x slab of {slab.X} planes needs the whole grid's cell_types, got "
+                             f"{None if cell_types is None else tuple(cell_types.shape)}")
         c_local = None
         if self.conditioning is not None:
             if cell_types is None:
@@ -158,9 +169,11 @@ class DenoisingModel(nn.Module):
 
         h = self.encode_x(x)
         if c_local is not None:
+            if slab is not None:
+                c_local = c_local[slice(*slab.planes)]
             enc = self.encode_c_local(c_local)
             h = torch.cat([h, enc[None].expand(B, *enc.shape)], dim=-1)
 
-        h = self.u_net(h, c)
-        h = self.decode_resnet(h, c)
+        h = self.u_net(h, c, slab)
+        h = self.decode_resnet(h, c, slab)
         return self.decode_out(h.float())

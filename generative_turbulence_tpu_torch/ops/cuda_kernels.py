@@ -21,6 +21,15 @@ order.  Between the launches ``_gn_affine`` folds the moments into per-(B, F) ``
 in a few f32 torch ops.  On a CPU tensor every wrapper takes its plain torch
 version instead; nothing falls back silently from a CUDA tensor.
 
+On the spatial axis (``parallel.spatial``: an x slab of the grid per rank)
+the chain exchanges halo planes: the first conv reads its neighbours' edge
+planes of x, the second their raw first-conv planes (exchanged between the
+launches; its prologue maps them with the same ``a, b``, which
+``_gn_affine`` folds from moments summed over the group and the global voxel
+count), through the convs' halo variant (``conv3x3x3_stats_halo``,
+``conv3x3x3_stats_silu_in_halo``: plane pointers, null at a global x edge,
+where the clamp stays).  The moments cover each rank's own planes.
+
 ``conv3d_3x3`` is the first kernel's conv without the moments epilogue
 (replicate-padded SAME 3x3x3 conv + bias, bf16 operands, f32 accumulation,
 output in x's type); its backward is autograd of the plain conv.  No model
@@ -48,7 +57,10 @@ from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from ..parallel.spatial import Slab, halo_exchange, replicate_pad, sp_var_mean
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -60,6 +72,8 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 LAUNCH_COUNTS: Dict[str, int] = {
     "conv3x3x3_stats": 0,
     "conv3x3x3_stats_silu_in": 0,
+    "conv3x3x3_stats_halo": 0,
+    "conv3x3x3_stats_silu_in_halo": 0,
     "affine_silu": 0,
     "conv3d_3x3": 0,
     "flash_attention": 0,
@@ -152,7 +166,7 @@ def _library() -> ctypes.CDLL:
             lib.gt_conv3x3x3_brick(bn, brick)
             if tuple(brick) != conv_brick(bn):
                 raise RuntimeError(f"library brick {tuple(brick)} != conv_brick({bn}) {conv_brick(bn)}")
-        lib.gt_conv3x3x3_stats.argtypes = [p, p, p, p, p, p, p, *([i] * 8), p]
+        lib.gt_conv3x3x3_stats.argtypes = [p, p, p, p, p, p, p, p, p, *([i] * 8), p]
         lib.gt_conv3x3x3_stats.restype = i
         lib.gt_affine_silu.argtypes = [p, p, p, p, i, i, ctypes.c_longlong, i, p]
         lib.gt_affine_silu.restype = i
@@ -254,22 +268,25 @@ def _brick_partials(y: torch.Tensor, brick: Tuple[int, int, int]) -> torch.Tenso
     return torch.stack(moments, dim=-2).reshape(B, nx * ny * nz, 2, Fo)
 
 
-def _conv3x3x3_stats_plain(x, w, bias, act):
+def _conv3x3x3_stats_plain(x, w, bias, act, halo=None):
     """The kernel's plain version: (y bf16, per-brick moments of the f32 y)."""
-    h = x
-    if act is not None:
+    def prologue(t):
+        if act is None:
+            return t.float()
         a, b = act
-        h = F.silu(x.float() * _spatial_bcast(a) + _spatial_bcast(b)).to(torch.bfloat16)
+        return F.silu(t.float() * _spatial_bcast(a) + _spatial_bcast(b)).to(torch.bfloat16).float()
+
     # f32 conv over bf16 values: exact products, f32 accumulation.
-    hc = F.pad(h.float().permute(0, 4, 1, 2, 3), (1, 1, 1, 1, 1, 1), mode="replicate")
+    hc = replicate_pad(prologue(x), 1, None if halo is None else tuple(prologue(t) for t in halo))
     y = F.conv3d(hc, w.float().permute(4, 3, 0, 1, 2), bias.float())
     y = y.permute(0, 2, 3, 4, 1)
     brick = conv_brick(conv_tiling(x.shape[-1], w.shape[-1])[0])
     return y.to(torch.bfloat16).contiguous(), _brick_partials(y, brick)
 
 
-def _conv3x3x3_stats_kernel(x, w, bias, act):
-    """Launches the conv kernel: (y bf16, per-brick moments)."""
+def _conv3x3x3_stats_kernel(x, w, bias, act, halo=None):
+    """Launches the conv kernel (its halo variant with ``halo``): (y bf16,
+    per-brick moments)."""
     B, X, Y, Z, C = x.shape
     Fo = w.shape[-1]
     _require_hopper(x.device)
@@ -279,6 +296,12 @@ def _conv3x3x3_stats_kernel(x, w, bias, act):
     if act is not None:
         for name, v in zip(("a", "b"), act):
             _require_cuda_tensor(v, name, torch.float32, (B, C))
+    planes = (None, None)
+    if halo is not None:
+        for name, t in zip(("lo", "hi"), halo):
+            if t.shape[1]:
+                _require_cuda_tensor(t, name, torch.bfloat16, (B, 1, Y, Z, C))
+        planes = tuple(t.data_ptr() if t.shape[1] else None for t in halo)
     lib = _library()
     bn, kc = conv_tiling(C, Fo)
     wp = pack_conv_weights(w, bn, kc)
@@ -289,11 +312,11 @@ def _conv3x3x3_stats_kernel(x, w, bias, act):
     pb = act[1].data_ptr() if act is not None else None
     with torch.cuda.device(x.device):  # the library sets attributes on the current device
         status = lib.gt_conv3x3x3_stats(
-            x.data_ptr(), wp.data_ptr(), bias.data_ptr(), pa, pb,
+            x.data_ptr(), *planes, wp.data_ptr(), bias.data_ptr(), pa, pb,
             out.data_ptr(), partial.data_ptr(), B, X, Y, Z, C, Fo, bn, kc,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    name = "conv3x3x3_stats" if act is None else "conv3x3x3_stats_silu_in"
+    name = ("conv3x3x3_stats" if act is None else "conv3x3x3_stats_silu_in") + ("" if halo is None else "_halo")
     _check_status(status, name)
     LAUNCH_COUNTS[name] += 1
     return out, partial
@@ -304,17 +327,21 @@ def conv3x3x3_stats(
     w: torch.Tensor,
     bias: torch.Tensor,
     act: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    halo: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Replicate-padded SAME 3x3x3 conv + bias with channel moments.
 
     x: (B, X, Y, Z, C) bf16; w: (3, 3, 3, C, F) bf16; bias: (F,) f32;
     act: None, or per-(B, C) f32 ``(a, b)``, in which case the conv reads
-    ``silu(a*x + b)`` rounded to bf16 instead of x.
+    ``silu(a*x + b)`` rounded to bf16 instead of x.  halo: None, or the
+    planes ``(lo, hi)`` before and after x along grid-x, each (B, 1, Y, Z,
+    C) bf16 or (B, 0, Y, Z, C) at a global edge, where the pad replicates
+    (the halo variant on a CUDA tensor).
     Returns (y (B, X, Y, Z, F) bf16, sums (B, 2, F) f32) with sums[:, 0] the
     sum of the f32 conv output over all voxels and sums[:, 1] its sum of squares.
     """
     run = _conv3x3x3_stats_kernel if x.is_cuda else _conv3x3x3_stats_plain
-    out, partial = run(x, w, bias, act)
+    out, partial = run(x, w, bias, act, halo)
     # Cross-brick reduction in a fixed order (no atomics): runs repeat bit for bit.
     return out, partial.sum(dim=1)
 
@@ -558,82 +585,106 @@ def _gn_affine(sums, gamma, beta, scale, shift, *, count, num_groups, eps):
 
 
 def kernel_chain(
-    x, w1, b1, gamma1, beta1, scale, shift, w2, b2, gamma2, beta2, *, num_groups, eps
+    x, w1, b1, gamma1, beta1, scale, shift, w2, b2, gamma2, beta2, *, num_groups, eps, slab=None, halo=None
 ):
     """The chain as its three kernels plus the two folds (no autograd).
 
     On CUDA tensors it launches the kernels; on CPU tensors each step takes
-    its plain version, which keeps the fold algebra testable there."""
+    its plain version, which keeps the fold algebra testable there.  With
+    ``slab`` x is this rank's x slab of the spatial axis and ``halo`` its
+    halo planes (``halo_exchange``): the convs take the halo variant, the
+    first conv's output planes are exchanged between the launches, and the
+    moments are summed over the group and divided by the global count."""
     B, X, Y, Z, _ = x.shape
-    count = X * Y * Z
+    count = (X if slab is None else slab.X) * Y * Z
     bf = torch.bfloat16
-    h1, s1 = conv3x3x3_stats(x.to(bf).contiguous(), w1.to(bf).contiguous(), b1.float())
+    halo = None if slab is None else tuple(t.to(bf).contiguous() for t in halo)
+
+    def group_sums(s):
+        if slab is not None:
+            dist.all_reduce(s, group=slab.axis.group)
+        return s
+
+    h1, s1 = conv3x3x3_stats(x.to(bf).contiguous(), w1.to(bf).contiguous(), b1.float(), halo=halo)
     a1, c1 = _gn_affine(
-        s1, gamma1, beta1, scale, shift, count=count, num_groups=num_groups, eps=eps
+        group_sums(s1), gamma1, beta1, scale, shift, count=count, num_groups=num_groups, eps=eps
     )
-    h2, s2 = conv3x3x3_stats(h1, w2.to(bf).contiguous(), b2.float(), act=(a1, c1))
+    if slab is not None:
+        halo = tuple(t.contiguous() for t in halo_exchange(h1, 1, slab.axis))
+    h2, s2 = conv3x3x3_stats(h1, w2.to(bf).contiguous(), b2.float(), act=(a1, c1), halo=halo)
+    s2 = group_sums(s2)
     a2, c2 = _gn_affine(
         s2, gamma2, beta2, None, None, count=count, num_groups=num_groups, eps=eps
     )
     return affine_silu(h2, a2, c2, x.dtype)
 
 
-def _conv3d_replicate(h, w):
+def _conv3d_replicate(h, w, halo=None):
     """SAME 3x3x3 conv with replicate padding in h.dtype, without bias.
-    h: (B, X, Y, Z, C); w: (3, 3, 3, C, F) -> (B, X, Y, Z, F)."""
-    hc = F.pad(h.permute(0, 4, 1, 2, 3), (1, 1, 1, 1, 1, 1), mode="replicate")
-    y = F.conv3d(hc, w.to(h.dtype).permute(4, 3, 0, 1, 2))
+    h: (B, X, Y, Z, C); w: (3, 3, 3, C, F) -> (B, X, Y, Z, F).  halo:
+    None, or h's x halo planes (``replicate_pad``)."""
+    y = F.conv3d(replicate_pad(h, 1, halo), w.to(h.dtype).permute(4, 3, 0, 1, 2))
     return y.permute(0, 2, 3, 4, 1)
 
 
 def reference_double_conv(
-    x, w1, b1, gamma1, beta1, scale, shift, w2, b2, gamma2, beta2, *, num_groups, eps
+    x, w1, b1, gamma1, beta1, scale, shift, w2, b2, gamma2, beta2, *, num_groups, eps, slab=None, halo=None
 ):
     """Plain torch version of the chain: conv in x.dtype, GroupNorm
     statistics in f32, output in x.dtype (the numerics of the JAX package's
-    ``_reference_double_conv``)."""
+    ``_reference_double_conv``).  ``slab``, ``halo`` as for
+    ``kernel_chain``: the second conv's halo planes come from
+    ``halo_exchange``, the statistics are the group's (two passes, each
+    summed over the group), all differentiable."""
 
-    def conv_gn_silu(h, w, b, gamma, beta, sc, sh):
-        y = _conv3d_replicate(h, w).float() + b.float()
+    def conv_gn_silu(h, w, b, gamma, beta, sc, sh, halo):
+        y = _conv3d_replicate(h, w, halo).float() + b.float()
         B, X, Y, Z, Fo = y.shape
         G = num_groups
         yg = y.reshape(B, X, Y, Z, G, Fo // G)
-        var, mean = torch.var_mean(yg, dim=(1, 2, 3, 5), keepdim=True, correction=0)
+        if slab is None:
+            var, mean = torch.var_mean(yg, dim=(1, 2, 3, 5), keepdim=True, correction=0)
+        else:
+            var, mean = sp_var_mean(yg, (1, 2, 3, 5), slab.X * Y * Z * (Fo // G), slab.axis)
         yn = ((yg - mean) * torch.rsqrt(var + eps)).reshape(B, X, Y, Z, Fo)
         yn = yn * gamma.float() + beta.float()
         if sc is not None:
             yn = (_spatial_bcast(sc.float()) + 1.0) * yn + _spatial_bcast(sh.float())
         return F.silu(yn).to(x.dtype)
 
-    h = conv_gn_silu(x, w1, b1, gamma1, beta1, scale, shift)
-    return conv_gn_silu(h, w2, b2, gamma2, beta2, None, None)
+    h = conv_gn_silu(x, w1, b1, gamma1, beta1, scale, shift, halo)
+    if slab is not None:
+        halo = halo_exchange(h, 1, slab.axis)
+    return conv_gn_silu(h, w2, b2, gamma2, beta2, None, None, halo)
 
 
 class _FusedDoubleConv(torch.autograd.Function):
-    """Forward: the kernels.  Backward: autograd of the plain chain."""
+    """Forward: the kernels.  Backward: autograd of the plain chain (with a
+    ``slab``, through the halo exchange's and the sums' own backward;
+    ``lo, hi`` are x's halo planes, or None)."""
 
     @staticmethod
-    def forward(ctx, num_groups, eps, *args):
-        ctx.num_groups, ctx.eps = num_groups, eps
-        ctx.save_for_backward(*args)
-        return kernel_chain(*args, num_groups=num_groups, eps=eps)
+    def forward(ctx, num_groups, eps, slab, lo, hi, *args):
+        ctx.num_groups, ctx.eps, ctx.slab = num_groups, eps, slab
+        ctx.save_for_backward(lo, hi, *args)
+        return kernel_chain(*args, num_groups=num_groups, eps=eps, slab=slab, halo=(lo, hi))
 
     @staticmethod
     def backward(ctx, grad):
-        args = ctx.saved_tensors
         with torch.enable_grad():
-            inputs = [a.detach().requires_grad_() if a is not None else None for a in args]
+            inputs = [a.detach().requires_grad_() if a is not None else None for a in ctx.saved_tensors]
             out = reference_double_conv(
-                *inputs, num_groups=ctx.num_groups, eps=ctx.eps
+                *inputs[2:], num_groups=ctx.num_groups, eps=ctx.eps, slab=ctx.slab, halo=inputs[:2]
             )
             live = [i for i in inputs if i is not None]
             grads = iter(torch.autograd.grad(out, live, grad, allow_unused=True))
-        return (None, None, *(next(grads) if i is not None else None for i in inputs))
+            grads = [next(grads) if i is not None else None for i in inputs]
+        return (None, None, None, *grads)
 
 
 def fused_double_conv_block(
     x, w1, b1, gamma1, beta1, scale, shift, w2, b2, gamma2, beta2,
-    num_groups: int = 8, eps: float = 1e-5,
+    num_groups: int = 8, eps: float = 1e-5, slab: Optional[Slab] = None,
 ):
     """The ResnetBlock core (both ConvBlocks, without the residual).
 
@@ -641,10 +692,13 @@ def fused_double_conv_block(
     scale/shift: (B, F) FiLM vectors or None.  Returns (B, X, Y, Z, F) in
     x.dtype.  A CUDA tensor runs the Hopper kernels (bf16 operands, f32
     accumulation and statistics); a CPU tensor runs ``reference_double_conv``.
+    With ``slab`` x is this rank's x slab of the spatial axis, and the
+    chain exchanges halo planes with the group.
     """
     args = (x, w1, b1, gamma1, beta1, scale, shift, w2, b2, gamma2, beta2)
+    lo, hi = (None, None) if slab is None else halo_exchange(x, 1, slab.axis)
     if not x.is_cuda:
-        return reference_double_conv(*args, num_groups=num_groups, eps=eps)
+        return reference_double_conv(*args, num_groups=num_groups, eps=eps, slab=slab, halo=(lo, hi))
     if x.dim() != 5:
         raise ValueError(f"x must be (B, X, Y, Z, C), got shape {tuple(x.shape)}")
     B, C = x.shape[0], x.shape[-1]
@@ -667,14 +721,17 @@ def fused_double_conv_block(
         raise ValueError(f"{Fo} channels do not split into {num_groups} groups")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x must be f32 or bf16, got {x.dtype}")
-    return _FusedDoubleConv.apply(num_groups, eps, *args)
+    return _FusedDoubleConv.apply(num_groups, eps, slab, lo, hi, *args)
 
 
-def fused_block_applicable(x: torch.Tensor, c_in: int, features: int) -> bool:
+def fused_block_applicable(x: torch.Tensor, c_in: int, features: int, slab: Optional[Slab] = None) -> bool:
     """Envelope of ``fused_double_conv_block``: big grids and at most 160
     channels, the JAX package's gate without its TPU/env-flag checks (the
-    caller checks for SiLU)."""
+    caller checks for SiLU).  On an x ``slab`` it decides on the whole grid,
+    so the same blocks engage at any sp."""
     X, Y, Z = x.shape[-4:-1]
+    if slab is not None:
+        X = slab.X
     if X * Y * Z < MIN_SPATIAL_FOR_FUSED_BLOCK:
         return False
     return max(c_in, features) <= MAX_CHANNELS_FOR_FUSED_BLOCK

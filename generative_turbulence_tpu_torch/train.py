@@ -17,7 +17,7 @@ The run is on the GPU (``cuda``) unless ``--device`` names another device;
 without a GPU it stops rather than train on the CPU.  ``config=<file>.yaml``
 needs PyYAML; overrides need nothing beyond the package.
 
-Data-parallel runs, one process per rank (``parallel/distributed.py``):
+Multi-process runs, one process per rank (``parallel/distributed.py``):
 
     GT_DISTRIBUTED=1 python -m torch.distributed.run --nproc-per-node 4 \
         -m generative_turbulence_tpu_torch.train model=diffusion data.root=...
@@ -25,7 +25,10 @@ Data-parallel runs, one process per rank (``parallel/distributed.py``):
         python -m generative_turbulence_tpu_torch.train ...
 
 ``--device cuda`` is then each rank's own card (NCCL), or the card the
-host's ranks share (gloo); ``--device cpu`` runs the ranks over gloo.
+host's ranks share (gloo); ``--device cpu`` runs the ranks over gloo.  The
+ranks are data parallel unless ``trainer.mesh_shape=[dp,sp]`` (dp x sp =
+the world size) shards each grid's x over groups of sp ranks
+(``parallel/mesh.py``, ``parallel/spatial.py``).
 
 ``trainer.matmul_precision`` maps onto TF32:
 ``default`` leaves torch's settings as they are, ``high`` allows TF32 in
@@ -76,6 +79,7 @@ def main(argv=None):
     import torch
 
     from .parallel.distributed import initialize_distributed
+    from .parallel.mesh import init_mesh
     from .training.config import parse_cli_overrides
     from .training.factory import instantiate_data_and_task
     from .training.loop import Trainer
@@ -95,6 +99,8 @@ def main(argv=None):
         raise RuntimeError(f"config files need the {e.name!r} module, which is not installed; "
                            "give the settings as key=value overrides") from e
     set_matmul_precision(config.trainer.matmul_precision)
+    # The mesh's groups come before the data: its dp index keys the shards.
+    init_mesh(config.trainer.mesh_shape)
 
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else str(device)
     print(f"device: {name}", file=sys.stderr)

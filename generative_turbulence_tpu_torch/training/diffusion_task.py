@@ -15,6 +15,14 @@ the cells back.  With a dataset root, the task also evaluates:
 ``eval_step`` samples a batch into the phase's sample store, and
 ``on_eval_end`` scores the store with the phase's metric collection
 (``val/tke`` and the rest), and ``render_plots`` draws its diagnostics.
+
+On a ``(dp, sp)`` mesh with sp > 1 (``parallel.mesh.init_mesh``; the JAX
+package's ``constrain_dense`` of the model input) the train step, the
+diagnostics and the samplers run on this rank's x slab of the dense grid
+(``parallel.spatial``): the input is embedded whole and cut to the slab,
+the draws are the whole group's cut the same way (``SlabNoise``), the loss
+sums over the group, and a sampler gathers its result over the group once,
+before ``gather_cells``.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ from torch.func import functional_call
 from torch.profiler import record_function
 
 from ..data.dataset import Batch
-from ..data.grid import GridMap, embed_cells, gather_cells
+from ..data.grid import GridMap, embed_cells, gather_cells, x_slab_view
 from ..data.schema import FieldStats
 from ..data.variables import Variable, total_dims
 from ..diffusion.gaussian import GaussianDiffusion, NoiseFn
@@ -38,6 +46,8 @@ from ..models.conditioning import Conditioning
 from ..models.normalization import Normalizer
 from ..models.unet import DenoisingModel
 from ..parallel.distributed import data_parallel, mean_over_ranks
+from ..parallel.mesh import mesh_layout
+from ..parallel.spatial import SlabNoise, SpatialAxis, gather_x, slab_of, slab_on
 from ..toolchain.from_flax import torch_state_dict_from_flax
 from .config import ModelConfig
 from .optimizers import OptState, build_optimizer
@@ -56,6 +66,7 @@ def sample(
     ddim_eta: float = 0.0,
     noise: NoiseFn,
     start_from: Optional[int] = None,
+    axis: Optional[SpatialAxis] = None,
 ) -> torch.Tensor:
     """Sample (B, n_cells, F) cell values for the geometry of ``grid``.
 
@@ -63,21 +74,39 @@ def sample(
     non-domain cells of their embedding matter).  ``sampler`` is "ddim"
     (``ddim_steps``, ``ddim_eta``) or "ddpm" (ancestral over all steps, or
     the last ``start_from``).  ``noise`` is the sampler's normal source.
+    ``model(x, t, cell_types)``; with a spatial ``axis`` of sp > 1 the
+    sampler runs on this rank's x slab, ``model`` takes it as ``slab=``,
+    and every rank of the group returns the whole samples.
     """
+    if sampler not in ("ddim", "ddpm"):
+        raise ValueError(f"Unknown sampler {sampler!r}")
     x_bcs = normalizer.normalize(embed_cells(cells, grid))
+    x_bcs, step_grid, noise = x_slab_inputs(axis, x_bcs, grid, noise)
+    on_slab = {} if step_grid.slab is None else {"slab": step_grid.slab}
 
     def eps_fn(x_t: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        return model(x_t, t, grid.cell_types)
+        return model(x_t, t, grid.cell_types, **on_slab)
 
     if sampler == "ddim":
         x = diffusion.ddim_sample_loop(
-            eps_fn, x_bcs, grid, noise, num_steps=ddim_steps, eta=ddim_eta
+            eps_fn, x_bcs, step_grid, noise, num_steps=ddim_steps, eta=ddim_eta
         )
-    elif sampler == "ddpm":
-        x = diffusion.p_sample_loop(eps_fn, x_bcs, grid, noise, start_from=start_from)
     else:
-        raise ValueError(f"Unknown sampler {sampler!r}")
+        x = diffusion.p_sample_loop(eps_fn, x_bcs, step_grid, noise, start_from=start_from)
+    if step_grid.slab is not None:
+        x = gather_x(x, step_grid.slab)
     return gather_cells(normalizer.denormalize(x), grid)
+
+
+def x_slab_inputs(axis: Optional[SpatialAxis], x: torch.Tensor, grid: GridMap, noise):
+    """``(x, grid, noise)`` as a rank of a spatial axis of sp > 1 works on
+    them: its x slab of the whole dense x, the grid's view of it (which
+    carries the ``Slab``), and its slabs of the group's draws; themselves
+    without one."""
+    slab = slab_on(axis, grid.shape[0])
+    if slab is None:
+        return x, grid, noise
+    return slab_of(x, slab), x_slab_view(grid, slab), SlabNoise(noise, slab)
 
 
 _DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
@@ -124,7 +153,11 @@ class DiffusionTask:
     In a ``torch.distributed`` run ``training_step`` runs ``net`` under
     ``DistributedDataParallel`` (``train_net``), which averages the
     gradients over the ranks; everything else uses ``net`` itself, so the
-    state dict's names are the same at any world size.
+    state dict's names are the same at any world size.  On a mesh with sp >
+    1 (``parallel.mesh``) each rank's gradient is sp times its share of the
+    sp group's (``parallel.spatial``), so that DDP's mean over all dp x sp
+    ranks is the mean over dp of each group's gradient; the steps, the
+    diagnostics and the samplers run on the rank's x slab.
     """
 
     def __init__(
@@ -294,16 +327,22 @@ class DiffusionTask:
     def _model_input(self, cells: torch.Tensor, grid: GridMap) -> torch.Tensor:
         return self.normalizer.normalize(embed_cells(cells, grid))
 
+    @staticmethod
+    def spatial_axis() -> SpatialAxis:
+        """This rank's spatial axis on the process's mesh (of one rank at
+        sp = 1)."""
+        return mesh_layout().axis
+
     def _eps_fn(self, grid: GridMap, params: Optional[Mapping] = None, net: Optional[torch.nn.Module] = None):
-        """``net`` (default: ``self.net``) over the grid's cell types, with
-        its own parameters or ``params`` (a name -> tensor mapping) in their
-        place."""
+        """``net`` (default: ``self.net``) over the grid's cell types (on
+        the grid's x slab, if it has one), with its own parameters or
+        ``params`` (a name -> tensor mapping) in their place."""
         net = self.net if net is None else net
 
         def eps_fn(x_t: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
             if params is None:
-                return net(x_t, t, grid.cell_types)
-            return functional_call(net, params, (x_t, t, grid.cell_types))
+                return net(x_t, t, grid.cell_types, slab=grid.slab)
+            return functional_call(net, params, (x_t, t, grid.cell_types), {"slab": grid.slab})
 
         return eps_fn
 
@@ -326,8 +365,8 @@ class DiffusionTask:
         for p in params:
             p.grad = None
         with record_function("train/loss"):
-            x = self._model_input(cells, grid)
-            loss = self.diffusion.loss(self._eps_fn(grid, net=self.train_net), x, grid, noise)
+            x, step_grid, noise = x_slab_inputs(self.spatial_axis(), self._model_input(cells, grid), grid, noise)
+            loss = self.diffusion.loss(self._eps_fn(step_grid, net=self.train_net), x, step_grid, noise)
         with record_function("train/backward"):
             loss.backward()
         with record_function("train/optimizer"):
@@ -357,17 +396,17 @@ class DiffusionTask:
         the same for both."""
         T = self.cfg.timesteps
         ts = np.unique(np.round(np.linspace(0, T - 1, 8)).astype(np.int64)).tolist()
-        x = self._model_input(cells, grid)
+        x, step_grid, noise = x_slab_inputs(self.spatial_axis(), self._model_input(cells, grid), grid, noise)
         draws = [noise(x.shape) for _ in ts]
         runs = [("val/eps-loss-t", None)]
         if self.ema is not None:
             runs.append(("val/eps-loss-ema-t", self.ema))
         out: Dict[str, float] = {}
         for prefix, params in runs:
-            eps_fn = self._eps_fn(grid, params)
+            eps_fn = self._eps_fn(step_grid, params)
             for t, draw in zip(ts, draws):
                 t_vec = torch.full((x.shape[0],), t, dtype=torch.long, device=x.device)
-                loss = self.diffusion.p_losses(eps_fn, x, t_vec, grid, lambda shape, d=draw: d)
+                loss = self.diffusion.p_losses(eps_fn, x, t_vec, step_grid, lambda shape, d=draw: d)
                 out[f"{prefix}{t}"] = float(loss)
         return out
 
@@ -385,11 +424,12 @@ class DiffusionTask:
         or ancestral over all steps or the last ``start_from``)."""
         model = self.eval_net
         if self.ema is not None:
-            model = lambda *args: functional_call(self.eval_net, self.ema, args)  # noqa: E731
+            model = lambda *args, **kwargs: functional_call(self.eval_net, self.ema, args, kwargs)  # noqa: E731
         return sample(
             model, self.diffusion, self.normalizer, cells, grid,
             sampler=self.cfg.sampler, ddim_steps=self.cfg.ddim_steps,
             ddim_eta=self.cfg.ddim_eta, noise=noise, start_from=start_from,
+            axis=self.spatial_axis(),
         )
 
     # ---- evaluation --------------------------------------------------------------

@@ -22,18 +22,22 @@ draws what an unkilled one draws, and a case's draws do not depend on the
 order of the cases.  Tests replay the JAX loop's draws through it.
 
 In a ``torch.distributed`` run (``parallel.distributed``) every rank runs
-this loop on its rows of the global batches, with its rows of the step's
-global draws (``parallel.mesh.RankRows``); the stop decisions (time limit,
-max_steps, early stopping) are taken alike on every rank; only rank 0
-writes logs and checkpoints; with ``data.shard_eval`` each rank validates
-its own cases and the metrics and the diagnostics are merged.
-``trainer.mesh_shape`` is None or ``(world size, 1)``.
+this loop on its dp group's rows of the global batches, with those rows of
+the step's global draws (``parallel.mesh.RankRows``); the stop decisions
+(time limit, max_steps, early stopping) are taken alike on every rank; only
+rank 0 writes logs and checkpoints; with ``data.shard_eval`` each dp group
+validates its own cases and the metrics and the diagnostics are merged.
+``trainer.mesh_shape`` is None (``(world size, 1)``) or ``(dp, sp)`` with
+dp x sp = world: the sp ranks of a group share each step's rows and cases
+and hold x slabs of its grids (``parallel.spatial``; the diffusion task
+only).
 """
 
 from __future__ import annotations
 
 import hashlib
 import re
+import sys
 import time
 from pathlib import Path
 from typing import Callable, Dict, Optional
@@ -43,7 +47,7 @@ import torch
 
 from ..diffusion.gaussian import GeneratorNoise, NoiseFn
 from ..parallel.distributed import allgather_objects, process_rank_and_world, reduce_host_value
-from ..parallel.mesh import check_mesh_shape, rank_noise
+from ..parallel.mesh import init_mesh, rank_noise
 from .checkpoint import CheckpointManager
 from .config import Config
 from .logging import MetricLogger
@@ -109,7 +113,10 @@ class Trainer:
         self.device = task.device
         tc = self.config.trainer
         self.rank, self.world = process_rank_and_world()
-        check_mesh_shape(tc.mesh_shape, self.world)
+        self.mesh = init_mesh(tc.mesh_shape)
+        if self.mesh.sp > 1 and not hasattr(task, "spatial_axis"):
+            raise ValueError(f"trainer.mesh_shape={tuple(tc.mesh_shape)}: {type(task).__name__} has no spatial "
+                             "axis (sp > 1 shards the diffusion task's grids)")
         self.out_dir = Path(tc.out_dir)
         if use_wandb is None:
             use_wandb = tc.use_wandb
@@ -124,6 +131,10 @@ class Trainer:
         self.noise_factory = noise_factory or KeyedNoise(tc.seed, self.device)
         self._vals_since_best = 0
         self._last_epoch_loss: Optional[float] = None
+        if self.world > 1:
+            m = self.mesh
+            print(f"[rank {self.rank}/{self.world}] mesh ({m.dp}, {m.sp}): dp {m.dp_index}, sp {m.sp_index}",
+                  file=sys.stderr, flush=True)
 
     def fit(self, state=None) -> Dict[str, float]:
         """Train from ``state`` (a task ``state_dict``), or from weights drawn

@@ -114,22 +114,24 @@ def test_local_rows_and_rank_rows_cut_the_global_draws():
 
 
 @pytest.mark.parametrize("mesh_shape, world, message", [
-    ((1, 2), 1, "spatial axis sp > 1"), ((2, 2), 4, "spatial axis sp > 1"), ((2, 1), 1, "dp = 2"),
-    ((1, 1), 2, "dp = 1"), ((4, 1), 2, "dp = 4"),
+    ((1, 2), 1, "dp x sp = 2 but the run has 1 rank"), ((2, 2), 2, "dp x sp = 4 but the run has 2 rank"),
+    ((2, 1), 1, "dp x sp = 2"), ((1, 1), 2, "dp x sp = 1"), ((4, 1), 2, "dp x sp = 4"),
+    ((0, 2), 0, "at least 1"),
 ])
 def test_mesh_shape_outside_the_ported_dp_axis_raises(mesh_shape, world, message):
-    with pytest.raises(ValueError, match=message) as info:
+    """A mesh whose dp x sp is not the world size, or an axis below 1."""
+    with pytest.raises(ValueError, match=message):
         check_mesh_shape(mesh_shape, world)
-    assert "ROADMAP" in str(info.value)
 
 
 def test_mesh_shape_of_the_whole_world_is_accepted(tiny_root, tmp_path):  # noqa: F811
-    """None or (world, 1) pass; the Trainer checks ``trainer.mesh_shape``."""
-    for mesh_shape, world in ((None, 1), (None, 4), ((1, 1), 1), ((4, 1), 4)):
+    """None, (world, 1) or any (dp, sp) of dp x sp = world pass; the Trainer
+    checks ``trainer.mesh_shape``."""
+    for mesh_shape, world in ((None, 1), (None, 4), ((1, 1), 1), ((4, 1), 4), ((2, 2), 4), ((1, 2), 2)):
         check_mesh_shape(mesh_shape, world)
     config = tconfig.parse_cli_overrides(base_overrides(tiny_root, tmp_path, "trainer.mesh_shape=[2,1]")).resolved()
     dm, task = instantiate_data_and_task(config, "cpu")
-    with pytest.raises(ValueError, match="dp = 2 but the run has 1 rank"):
+    with pytest.raises(ValueError, match="dp x sp = 2 but the run has 1 rank"):
         Trainer(config, task, dm)
 
 

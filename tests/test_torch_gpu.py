@@ -70,7 +70,7 @@ def test_kernels_match_plain_on_gpu(B, X, Y, Z, C, Fo, film, G):
     torch.cuda.synchronize()
     assert {k: ck.LAUNCH_COUNTS[k] - before[k] for k in before} == {
         "conv3x3x3_stats": 1, "conv3x3x3_stats_silu_in": 1, "affine_silu": 1,
-        "conv3d_3x3": 0, "flash_attention": 0,
+        "conv3x3x3_stats_halo": 0, "conv3x3x3_stats_silu_in_halo": 0, "conv3d_3x3": 0, "flash_attention": 0,
     }
     _assert_bf16_close(got.float().cpu().numpy(), want.float().cpu().numpy())
 
@@ -319,6 +319,52 @@ def test_conv_stats_kernel_matches_plain_on_gpu(X, Y, Z, C, Fo, silu_in):
     assert max(err_mean, err_var) < 1e-3, (err_mean, err_var)
     again, again_partial = ck._conv3x3x3_stats_kernel(x, w, bias, act)
     assert torch.equal(got, again) and torch.equal(partial, again_partial)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sides", ["lo", "hi", "both"])
+@pytest.mark.parametrize("silu_in", [False, True])
+@pytest.mark.parametrize("X,Y,Z,C,Fo", [(13, 6, 9, 32, 32), (9, 5, 10, 64, 128), (10, 4, 8, 128, 32)])
+def test_conv_stats_halo_kernel_matches_plain_on_gpu(X, Y, Z, C, Fo, silu_in, sides):
+    """The conv's halo variant (the spatial axis: x planes before and after
+    an x slab, a null pointer at a global edge) against its plain twin:
+    output at the bf16 tolerance, channel moments of the slab's own planes
+    within 1e-3, one launch under the ``_halo`` name.  And the two slabs of
+    a whole grid, each with its neighbour's plane, give the whole grid's conv
+    (no halo) bit for bit: a voxel's sum does not depend on where its brick
+    starts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA Hopper GPU")
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(X * 1000 + C + Fo + 7)
+    B = 2
+    whole = torch.randn(B, X, Y, Z, C, generator=gen).to("cuda", torch.bfloat16)
+    w = (torch.randn(3, 3, 3, C, Fo, generator=gen) * (27 * C) ** -0.5).to("cuda", torch.bfloat16)
+    bias = (0.5 + 0.1 * torch.randn(Fo, generator=gen)).cuda()
+    act = None
+    if silu_in:
+        act = ((1 + 0.2 * torch.randn(B, C, generator=gen)).cuda(),
+               (0.2 * torch.randn(B, C, generator=gen)).cuda())
+    s, e = (1, X - 1) if sides == "both" else (1, X) if sides == "lo" else (0, X - 1)
+    x = whole[:, s:e].contiguous()
+    halo = (whole[:, s - 1 : s].contiguous(), whole[:, e : e + 1].contiguous())
+    name = ("conv3x3x3_stats_silu_in" if silu_in else "conv3x3x3_stats") + "_halo"
+    before = ck.LAUNCH_COUNTS[name]
+    got, partial = ck._conv3x3x3_stats_kernel(x, w, bias, act, halo)
+    torch.cuda.synchronize()
+    assert ck.LAUNCH_COUNTS[name] == before + 1
+    want, want_partial = ck._conv3x3x3_stats_plain(x, w, bias, act, halo)
+    assert got.shape == want.shape == (B, e - s, Y, Z, Fo)
+    _assert_bf16_close(got.float().cpu().numpy(), want.float().cpu().numpy())
+    err_mean, err_var = _moment_errors(partial.sum(1), want_partial.sum(1), (e - s) * Y * Z)
+    assert max(err_mean, err_var) < 1e-3, (err_mean, err_var)
+    if sides == "both":
+        full, _ = ck._conv3x3x3_stats_kernel(whole, w, bias, act)
+        m = X // 2
+        parts = [ck._conv3x3x3_stats_kernel(whole[:, a:b].contiguous(), w, bias, act,
+                                            (whole[:, a - 1 : a].contiguous(), whole[:, b : b + 1].contiguous()))[0]
+                 for a, b in ((0, m), (m, X))]
+        assert torch.equal(torch.cat(parts, dim=1), full)
 
 
 @pytest.mark.gpu
