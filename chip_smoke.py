@@ -215,6 +215,31 @@ Run from the repository root:  python3 chip_smoke.py
    ``graft_entry.dryrun_multichip(2)`` on the card in a process of its own
    (mesh (1x2)).  Prints one ``spatial`` JSON line first among the result
    lines.
+6i. The paper's run recipes (``scripts/run_shapes.py``), after 6b on its
+   dataset, through ``run_shapes.main`` in this process with 6c's cuts:
+   ``diffusion-r5`` (bf16 + remat, micro-batches of 3 at accumulation 2,
+   training frames rounded to bf16 by ``data.device_cache_gb=2``, EMA
+   0.999) for ``trainer.max_steps=4`` micro-steps (2 updates) and the one
+   validation the stop brings (f32 DDIM-50 with x0 clipped to the training
+   envelope, 2 val batches).  Checks: the first training batch on the card
+   is bf16 and the bf16 rounding of the host's f32 frames of the sampler's
+   first batch in sorted order, bit for bit; each micro-step draws its noise
+   as 128 levels (JAX's bf16 law), whose values on the card are the CPU
+   table's, each about as frequent; 7 launches per chain kernel per
+   micro-step and 4 x (16 + 50 x 2) per validation; the task's clip bounds
+   are ``stats.envelope``'s in normalised units; finite losses, samples and
+   ``val/tke``.  Then ``tfnet`` and ``dilresnet`` for 2 micro-steps each
+   (validation rollouts cut to 4 steps: the case has 16 frames): bf16
+   training windows, no kernel launched.  After them, in this process, the
+   host tools one by one, timed: ``generate_2d3d regression --inflows 20
+   --mock-solve --frames 4`` (192x48x48 and 192x48x1, ``.npyd``),
+   ``split_2d3d`` (each split the case's frames in order),
+   ``validate_dataset --deep`` (only the analyses missing, which a 2D/3D
+   study has none of), ``generate_performance_dataset`` (widths 1-16) and
+   ``solve_slurm --dry-run`` (``--array=1-5``, ``--cpus-per-task=16``), with
+   no ``h5py``.  Prints one ``recipes`` JSON line first among the result
+   lines (ms per micro-step and per update,
+   peak memory, the validation's seconds, the host tools' seconds).
 7. Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
    Every kernel's entry has its time, its bound (``bound_ms``: the larger of
    its bytes over the memory rate and its operations over the peak rate of
@@ -226,8 +251,9 @@ Run from the repository root:  python3 chip_smoke.py
    and validation on the Trainer's, and per val batch of ``eval_ckpt`` and
    per entry point of phase 6d, per rank per step of phase 6e, per
    mode and per U-Net evaluation of phase 6f's ``profile_fwd``, per
-   step and per validation of phase 6g's Trainer, and per rank per step of
-   phase 6h's mesh (1, 2), where the halo variants launch).
+   step and per validation of phase 6g's Trainer, per rank per step of
+   phase 6h's mesh (1, 2), where the halo variants launch, and per
+   micro-step and per validation of phase 6i's r5 recipe).
 
 Any failure exits non-zero before the last line.
 
@@ -3089,6 +3115,274 @@ def toolchain_phase(torch, ck, root: Path, smi: str) -> tuple:
     return launches, row
 
 
+# Phase 6i, the paper's run recipes: ``scripts/run_shapes.py`` on phase 6b's
+# dataset (the shapes grid, 1 train and 1 val case of 16 frames), each run
+# through the entry point's ``main`` in this process with 6c's cuts; then the
+# host tools one by one (they use no card, and run after the timed card work
+# so that the host's cores are free while it runs).
+RECIPE_STEPS = 4  # trainer.max_steps counts micro-steps: 2 updates at accumulate 2
+RECIPE_MICRO_BATCH = 3  # the r5 recipe's batch 6 over accumulate 2
+RECIPE_VAL_BATCHES = 2  # 8 val frames at the recipe's eval batch 6
+RECIPE_DDIM_STEPS = 50
+RECIPE_CUTS = TRAINER_CUTS + [f"trainer.max_steps={RECIPE_STEPS}"]
+# The baselines' validation rollout cut to 4 steps (6c's DilResNet cut): a
+# 16-frame case holds no window of the configs' 6 + 27 or 1 + 27 frames.
+BASELINE_RECIPE_CUTS = TRAINER_CUTS + ["trainer.max_steps=2", "model.eval_unroll_steps=4",
+                                       "model.sample_steps=[2,3,4]", "model.main_sample_step=4", "data.val_samples=2"]
+PERFORMANCE_WIDTHS = [1, 2, 4, 8, 16]  # generate_performance_dataset's default
+ANALYSES = ["missing mean-flow.npyd or mean-flow.h5", "missing regions.npz", "missing max-mean-tke.npy"]
+
+
+def run_host_tools(out: Path) -> dict:
+    """Phase 6i's host tools through their ``main``, one after another,
+    each timed on the host clock: their results and seconds."""
+    import importlib.util
+    import io
+
+    from generative_turbulence_tpu_torch.scripts import (
+        generate_2d3d, generate_performance_dataset, solve_slurm, split_2d3d, validate_dataset)
+
+    study, perf = out / "study", out / "performance"
+    steps = [
+        ("generate_2d3d", generate_2d3d.main, ["regression", study, "--inflows", "20", "--mock-solve", "--frames", 4]),
+        ("split_2d3d", split_2d3d.main, [study]),
+        ("validate_dataset", validate_dataset.main, [study, "--deep"]),
+        ("generate_performance_dataset", generate_performance_dataset.main, [perf]),
+        ("solve_slurm", solve_slurm.main, [perf / "cases", "--dry-run"]),
+    ]
+    row = {"seconds": {}, "results": {}, "h5py_importable": importlib.util.find_spec("h5py") is not None}
+    for name, main, argv in steps:
+        tic = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            result = main([str(a) for a in argv])
+        row["seconds"][name] = time.perf_counter() - tic
+        row["results"][name] = json.loads(json.dumps(result, default=str))
+    return row
+
+
+def check_host_tools(out: Path, row: dict) -> dict:
+    """Phase 6i's checks of the host tools' outputs; returns their row."""
+    import numpy as np
+
+    from generative_turbulence_tpu_torch.data.npyd import read_tree
+
+    res, study = row["results"], out / "study"
+    cases = res["generate_2d3d"]
+    check(cases == ["inflow-20.0-2d", "inflow-20.0-3d"], f"generate_2d3d: {cases}")
+    counts = {c: json.loads((study / "cases" / c / "mesh-params.json").read_text())["cell_counts"] for c in cases}
+    check(counts == {"inflow-20.0-2d": [192, 48, 1], "inflow-20.0-3d": [192, 48, 48]}, f"generate_2d3d: {counts}")
+    check(not list(out.rglob("*.h5")) and not row["h5py_importable"], "host tools: an .h5 file or h5py on the card")
+    frames = {}
+    for case in cases:
+        whole = read_tree(study / "cases" / case / "data.npyd")[0]
+        parts = [read_tree(study / split / case / "data.npyd")[0] for split in ("train", "val", "test")]
+        frames[case] = [len(part["data/times"]) for part in parts]
+        for key in ("data/times", "data/u", "data/p"):
+            check(np.array_equal(np.concatenate([part[key] for part in parts]), whole[key]),
+                  f"split_2d3d: {case} {key} is not the case's frames in order")
+    check(all(f == [2, 0, 1] for f in frames.values()), f"split_2d3d: frames per split {frames}")
+    check(res["validate_dataset"] == {"n_cases": 2, "failed": {c: ANALYSES for c in cases}},
+          f"validate_dataset: {res['validate_dataset']} (a 2D/3D study has no analyses, nothing else may fail)")
+    perf = out / "performance" / "cases"
+    check([Path(p).name for p in res["generate_performance_dataset"]] == [f"parallel-{w}" for w in PERFORMANCE_WIDTHS],
+          f"generate_performance_dataset: {res['generate_performance_dataset']}")
+    for width in PERFORMANCE_WIDTHS:
+        text = (perf / f"parallel-{width}" / "system" / "decomposeParDict").read_text()
+        check(f"numberOfSubdomains {width};" in text, f"parallel-{width}: decomposeParDict")
+    sbatch = (perf / "solve.sbatch").read_text()
+    listed = (perf / "slurm-cases.txt").read_text().split()
+    check(res["solve_slurm"] == 0 and "#SBATCH --array=1-5\n" in sbatch and "#SBATCH --cpus-per-task=16\n" in sbatch
+          and len(listed) == 5, f"solve_slurm: {res['solve_slurm']}, {len(listed)} cases listed, sbatch:\n{sbatch}")
+    row["split_frames"] = frames
+    log(f"    host tools (one by one, host clock): {json.dumps(row['seconds'])}; study {counts}, split frames "
+        f"(train, val, test) {frames}, validate_dataset: only the analyses missing; performance widths "
+        f"{PERFORMANCE_WIDTHS}; solve.sbatch --array=1-5 --cpus-per-task=16")
+    return row
+
+
+class RecordedNoise:
+    """A noise source that records what a training step asks of it."""
+
+    def __init__(self, noise):
+        self.noise, self.calls = noise, []
+
+    def __call__(self, shape):
+        self.calls.append(("normal", tuple(shape)))
+        return self.noise(shape)
+
+    def randint(self, n, high):
+        self.calls.append(("randint", n, high))
+        return self.noise.randint(n, high)
+
+
+def recipes_phase(torch, ck, root: Path, smi: str) -> tuple:
+    """Phase 6i: ``run_shapes diffusion-r5`` for 2 updates and one
+    validation, ``run_shapes tfnet`` and ``run_shapes dilresnet`` for 2
+    micro-steps each, on the dataset under ``root``; the host tools after
+    them.  Returns the r5 run's launches and the ``recipes`` JSON row."""
+    import numpy as np
+
+    from generative_turbulence_tpu_torch.data.dataset import CaseDataset, GeometryPureBatches
+    from generative_turbulence_tpu_torch.data.npyd import open_case_file
+    from generative_turbulence_tpu_torch.data.schema import CaseRepository, FieldStats, find_data_files, read_metadata
+    from generative_turbulence_tpu_torch.diffusion.gaussian import Bf16NormalLaw, GeneratorNoise, bf16_normal_levels
+    from generative_turbulence_tpu_torch.scripts import run_shapes
+    from generative_turbulence_tpu_torch.training.diffusion_task import DiffusionTask
+    from generative_turbulence_tpu_torch.training.loop import Trainer
+    from generative_turbulence_tpu_torch.training.regression_task import DilResNetTask, TFNetTask
+
+    tic = time.perf_counter()
+    row = {"seconds": {}, "peak_gib": {}, "launches": {}}
+    log(f"[6i] the paper's run recipes through run_shapes.main on 6b's dataset; {' '.join(RECIPE_CUTS)}; then the "
+        f"host tools")
+    step = functools.partial(entry_point_step, torch, ck, row)
+    # (a) diffusion-r5: 2 updates of 2 micro-steps of 3, one validation.
+    steps, validations, tasks = [], [], []
+    training_step, validate = DiffusionTask.training_step, Trainer.validate
+
+    def measured_step(task, cells, grid, noise):
+        tasks[:] = [task]
+        if not steps:
+            row["first_batch"] = {"dtype": str(cells.dtype), "device": str(cells.device),
+                                  "cells": cells.detach().cpu()}
+        before = dict(ck.LAUNCH_COUNTS)
+        recorded = RecordedNoise(noise)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        result = training_step(task, cells, grid, recorded)
+        end.record()
+        steps.append({"events": (start, end), "loss": result["train/loss"], "draws": recorded.calls,
+                      "shape": (cells.shape[0], *grid.shape, cells.shape[-1]),
+                      "launches": {k: v - before[k] for k, v in ck.LAUNCH_COUNTS.items()}})
+        return result
+
+    def measured_validate(self, *args, **kwargs):
+        before = dict(ck.LAUNCH_COUNTS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = validate(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        validations.append({"s": time.perf_counter() - t0, "metrics": dict(result),
+                            "launches": {k: v - before[k] for k, v in ck.LAUNCH_COUNTS.items()}})
+        return result
+
+    out = root / "recipes"
+    overrides = [*RECIPE_CUTS, f"data.root={root}", f"trainer.out_dir={out / 'r5'}",
+                 f"trainer.samples_root={out / 'r5' / 'samples'}"]
+    log(f"  run_shapes diffusion-r5: {' '.join(run_shapes.RECIPES['diffusion-r5'])}")
+    with patched(DiffusionTask, "training_step", measured_step), patched(Trainer, "validate", measured_validate):
+        score = step("diffusion-r5", run_shapes.main, ["diffusion-r5", *overrides])
+    task = tasks[0]
+    torch.cuda.synchronize()
+    micro_ms = [a.elapsed_time(b) for a, b in (s["events"] for s in steps)]
+    losses = [float(s["loss"]) for s in steps]
+    check(len(steps) == RECIPE_STEPS and all(math.isfinite(v) for v in losses), f"r5: losses {losses}")
+    check(task.opt_state.count == RECIPE_STEPS // 2 and task.cfg.accumulate_steps == 2,
+          f"r5: {task.opt_state.count} updates in {len(steps)} micro-steps")
+
+    # The first batch: bf16 on the card, the bf16 rounding of the host's
+    # f32 frames of the sampler's first batch in sorted order.
+    first = row.pop("first_batch")
+    stats = FieldStats.from_file(root / "stats.pickle")
+    train = CaseDataset(CaseRepository(find_data_files(root / "train"), task.variables), stats,
+                        discard_first_seconds=-1)
+    sampler = GeometryPureBatches(train, batch_size=RECIPE_MICRO_BATCH, shuffle=True, seed=0, epoch=0)
+    idxs = sorted(next(iter(sampler)))
+    with open_case_file(find_data_files(root / "train")[0]) as f:
+        frames = np.concatenate([np.asarray(f["data/u"][idxs]), np.asarray(f["data/p"][idxs])[..., None]], -1)
+    want = torch.from_numpy(frames.astype(np.float32)).to(torch.bfloat16)
+    check(first["dtype"] == "torch.bfloat16" and first["device"].startswith("cuda")
+          and torch.equal(first["cells"], want),
+          f"r5: first batch {first['dtype']} on {first['device']}, frames {idxs} rounded to bf16 "
+          f"{'equal' if torch.equal(first['cells'], want) else 'differ'}")
+    log(f"    first batch: bf16 on {first['device']}, frames {idxs} (sorted) of the host's f32 frames rounded "
+        f"to bf16, bit for bit")
+
+    # The noise: JAX draws it at the bf16 frames' dtype, so each micro-step
+    # draws 128 levels (Bf16NormalLaw), whose values on the card are the CPU
+    # table's, each about as frequent.
+    shape = steps[0]["shape"]
+    n = math.prod(shape)
+    want = [("randint", RECIPE_MICRO_BATCH, task.cfg.timesteps), ("randint", n, 128)]
+    check(all(s["draws"] == want for s in steps), f"r5: draws {[s['draws'] for s in steps]}, expected {want}")
+    law = Bf16NormalLaw(GeneratorNoise(torch.Generator(device="cuda").manual_seed(0), "cuda"))
+    values, counts = torch.unique(law(shape), return_counts=True)
+    spread = (counts.min().item() / (n / 128), counts.max().item() / (n / 128))
+    check(torch.equal(values.cpu(), bf16_normal_levels(torch.device("cpu"))) and 0.97 < spread[0] <= spread[1] < 1.03,
+          f"r5: the card's noise takes {values.numel()} values, counts / expected in {spread}")
+    row["noise_levels_spread"] = spread
+    log(f"    noise: each micro-step drew {n} levels of the bf16 law; on the card its values are the CPU table's, "
+        f"counts / expected in {spread!r}")
+
+    # Launches: 7 per micro-step (remat), 4 x (16 + 50 x 2) per validation.
+    check(len(validations) == 1, f"r5: {len(validations)} validations")
+    val_evals = DIAGNOSTIC_EVALS + RECIPE_DDIM_STEPS * RECIPE_VAL_BATCHES
+    for kernel in CHAIN_KERNELS:
+        per_step = [s["launches"][kernel] for s in steps]
+        check(per_step == [TRAIN_CHAIN_LAUNCHES] * RECIPE_STEPS,
+              f"r5: {kernel} launched {per_step} per micro-step, expected {TRAIN_CHAIN_LAUNCHES}")
+        check(validations[0]["launches"][kernel] == len(ENGAGED_BLOCKS) * val_evals,
+              f"r5: {kernel} launched {validations[0]['launches'][kernel]} times in the validation, expected "
+              f"{len(ENGAGED_BLOCKS) * val_evals}")
+    launches = row["launches"]["diffusion-r5"]
+    check(launches["flash_attention"] == 0 and launches["conv3d_3x3"] == 0
+          and not any(launches[k] for k in HALO_KERNELS), f"r5: launches {launches}")
+
+    # The validation: f32, DDIM-50, x0 clipped to stats.envelope's bounds
+    # in normalised units, finite samples, a finite val/tke.
+    lo, hi = stats.envelope(task.variables)
+    mean, std = task.normalizer.mean, task.normalizer.std
+    bounds = ((lo.astype(np.float32) - mean) / std, (hi.astype(np.float32) - mean) / std)
+    cfg = task.cfg
+    check(cfg.eval_compute_dtype == "float32" and cfg.ddim_steps == RECIPE_DDIM_STEPS and cfg.sampler == "ddim"
+          and cfg.clip_denoised and cfg.clip_mode == "envelope" and task.diffusion.clip_denoised
+          and all(np.array_equal(g, w) for g, w in zip(task.diffusion.clip_bounds, bounds)),
+          f"r5: validation settings {cfg.eval_compute_dtype}, DDIM-{cfg.ddim_steps}, clip {cfg.clip_mode}, "
+          f"bounds {task.diffusion.clip_bounds} against {bounds}")
+    store = task.sample_stores["val"]
+    samples = np.concatenate([store.load_samples(read_metadata(f)).stacked_cells(task.variables)
+                              for f in find_data_files(root / "val")])
+    inside = float(np.mean((samples >= lo - 1e-3 * np.abs(lo)) & (samples <= hi + 1e-3 * np.abs(hi))))
+    metrics = validations[0]["metrics"]
+    check(samples.shape[0] == 8 and np.isfinite(samples).all() and math.isfinite(metrics.get("val/tke", math.nan))
+          and math.isfinite(score), f"r5: samples {samples.shape}, finite {np.isfinite(samples).all()}, "
+          f"val/tke {metrics.get('val/tke')}, score {score}")
+    row["r5"] = {"micro_step_ms": micro_ms, "update_ms": [a + b for a, b in zip(micro_ms[::2], micro_ms[1::2])],
+                 "losses": losses, "validation_s": validations[0]["s"], "validation": metrics,
+                 "peak_gib": row["peak_gib"]["diffusion-r5"], "launches_per_micro_step": [s["launches"] for s in steps],
+                 "launches_per_validation": validations[0]["launches"], "unet_evaluations_per_validation": val_evals,
+                 "samples": list(samples.shape), "samples_inside_envelope": inside, "n_params": task.n_params()}
+    log(f"    micro-steps {micro_ms!r} ms (updates {row['r5']['update_ms']!r} ms); losses {losses!r}; peak "
+        f"{row['peak_gib']['diffusion-r5']!r} GiB; validation {validations[0]['s']!r} s (f32 DDIM-50 clipped to "
+        f"the envelope, {samples.shape[0]} samples, {inside!r} of their values inside it; val/tke "
+        f"{metrics['val/tke']!r}); {TRAIN_CHAIN_LAUNCHES} launches per micro-step and {len(ENGAGED_BLOCKS)} x "
+        f"{val_evals} per validation for each chain kernel")
+    del task, tasks, store
+    torch.cuda.empty_cache()
+
+    # (b) The baselines' recipes: bf16 windows, no Hopper kernel.
+    for name, cls in (("tfnet", TFNetTask), ("dilresnet", DilResNetTask)):
+        dtypes = []
+        train = cls.training_step
+
+        def recorded(task, cells, grid, noise, _train=train):
+            dtypes.append(str(cells.dtype))
+            return _train(task, cells, grid, noise)
+
+        with patched(cls, "training_step", recorded):
+            step(name, run_shapes.main, [name, *BASELINE_RECIPE_CUTS, f"data.root={root}",
+                                         f"trainer.out_dir={out / name}"])
+        check(dtypes == ["torch.bfloat16"] * 2, f"{name}: training windows {dtypes}")
+        check(not any(row["launches"][name].values()), f"{name}: launches {row['launches'][name]}")
+        log(f"    {name}: 2 micro-steps on bf16 windows, no kernel launched")
+
+    # (c) The host tools, after the card's work.
+    tools_out = root / "host-tools"
+    row["host_tools"] = check_host_tools(tools_out, run_host_tools(tools_out))
+    row.update(card=smi, phase_s=time.perf_counter() - tic)
+    return row["launches"]["diffusion-r5"], row
+
+
 def multi_card_main() -> int:
     """``python3 chip_smoke.py --multi-card``, on a machine with several
     cards: phase 6e's paper run at batch 2 x cards, in one process and on
@@ -3206,6 +3500,8 @@ def main() -> int:
             for label, overrides, n_evals, flash_per_eval in EVAL_RUNS:
                 eval_launches[label], eval_rows[label] = eval_phase(
                     torch, ck, Path(tmp), label, overrides, n_evals, flash_per_eval)
+            recipe_launches, recipe_rows = recipes_phase(torch, ck, Path(tmp), smi)
+            log(f"  phase 6i took {recipe_rows['phase_s']!r} s")
         with tempfile.TemporaryDirectory() as tmp:
             tic = time.perf_counter()
             trainer_rows = {"dataset_frames": TRAINER_FRAMES,
@@ -3246,7 +3542,8 @@ def main() -> int:
                              + sum(counts[name] for counts in dp_launches["gloo_2"] + dp_launches["nccl_1"])
                              + sum(counts[name] for counts in profile_launches.values())
                              + toolchain_launches[name]
-                             + sum(counts[name] for counts in sp_launches["ranks"]))
+                             + sum(counts[name] for counts in sp_launches["ranks"])
+                             + recipe_launches[name])
         entry["launches_by_path"] = {
             "4_levels": launches4[name], "2_levels": launches2[name],
             "train_4_levels": train4["launches_per_step"][name],
@@ -3269,8 +3566,13 @@ def main() -> int:
             "toolchain_trainer_per_validation": toolchain_rows["launches_per_validation"][name],
             "sp_1x2_per_rank_per_step": [[c[name] for c in rank] for rank in sp_launches["per_step"]],
             "sp_1x2_per_rank": [counts[name] for counts in sp_launches["ranks"]],
+            "recipe_r5_per_micro_step": [c[name] for c in recipe_rows["r5"]["launches_per_micro_step"]],
+            "recipe_r5_per_validation": recipe_rows["r5"]["launches_per_validation"][name],
+            "recipe_tfnet": recipe_rows["launches"]["tfnet"][name],
+            "recipe_dilresnet": recipe_rows["launches"]["dilresnet"][name],
         }
     log(f"[7] card: {smi}")
+    print(json.dumps({"recipes": recipe_rows, "card": smi}))
     print(json.dumps({"spatial": sp_rows, "card": smi}))
     print(json.dumps({"toolchain": toolchain_rows, "card": smi}))
     print(json.dumps({"study_scripts": study_rows, "card": smi}))

@@ -10,16 +10,28 @@ reads and the collation in a host thread, and with ``DataModule(device=...)``
 also the copy of each batch to the device (``Batch.to``: pinned host memory,
 ``non_blocking``), so that it overlaps the consumer's step.
 
-Left out, as workarounds for the TPU host link and XLA recompiles: the cell
-bucket, the pooled host buffers (``HostBufferPool``, ``collate_pooled``), the
-device-resident frame cache and the bf16 transfer.  Multi-process runs shard
-by the rank's dp index and the number of dp groups (``parallel.mesh``:
-``(rank, world)`` of ``torch.distributed`` without a spatial axis; the sp
-ranks of one group read the same rows and cases): every dp group then draws
-the same global train batches and reads only its own rows of each
-(``parallel.mesh.local_rows``), or, with ``shard_by_host``, its own cases at
-the full batch, all ranks taking as many batches as the shortest shard
-holds.
+Training batches carry the values and the order the JAX package's give,
+not its residency.  With ``transfer_dtype="bfloat16"`` (implied by
+``device_cache_gb > 0``, as every paper recipe sets it) every training
+batch's raw frames reach the device rounded to bf16, as JAX's device frame
+cache and its bf16 transfer give them; the task embeds them in bf16 and
+normalises them as XLA compiles JAX's step (``Normalizer.normalize_frames``).
+A training batch's frames come sorted, as JAX's pooled collation and its
+frame cache (both on in its default settings and every recipe) read them;
+a batch with a repeated frame keeps the sampler's order, as JAX's copying
+collation does.  Validation and test batches stay float32.  Left out, as
+workarounds for the TPU host link and XLA recompiles: the device-resident
+frames themselves, the cell bucket (the padding of the cells and index
+tables), the pooled host buffers (``buffer_pool``) and the streamed
+batches' f32 read without ``device_prefetch``.
+
+Multi-process runs shard by the rank's dp index and the number of dp groups
+(``parallel.mesh``: ``(rank, world)`` of ``torch.distributed`` without a
+spatial axis; the sp ranks of one group read the same rows and cases): every
+dp group then draws the same global train batches and reads only its own
+rows of each (``parallel.mesh.local_rows``; the order is decided on the
+global batch), or, with ``shard_by_host``, its own cases at the full batch,
+all ranks taking as many batches as the shortest shard holds.
 """
 
 from __future__ import annotations
@@ -40,6 +52,8 @@ from ..parallel.mesh import dp_rank_and_size, local_rows
 from .grid import GridMap
 from .schema import CaseMetadata, CaseRepository, FieldStats, find_data_files
 from .variables import Variable
+
+TRANSFER_DTYPES = (None, "float32", "bfloat16")
 
 
 def pinned_device(device):
@@ -79,7 +93,8 @@ class CaseData:
 class Batch:
     """What a task step receives: cell values + the case's grid map + stats.
 
-    ``cells`` is a host numpy array and ``grid`` lives on the CPU as the
+    ``cells`` is a host numpy array (a CPU bf16 tensor where the training
+    frames are rounded to bf16) and ``grid`` lives on the CPU as the
     collation makes them; ``to(device)`` gives the batch on a device."""
 
     cells: np.ndarray | torch.Tensor  # (B, n_cells, F) stacked in variable order
@@ -257,10 +272,35 @@ def shard_files_by_host(files: List[Path], enabled: bool) -> List[Path]:
     return files[rank::world] or [files[rank % len(files)]]
 
 
-def collate(data: CaseData, stats: FieldStats, variables: Sequence[Variable]) -> Batch:
+def train_order(idxs: List[int]) -> List[int]:
+    """A global train batch's frames in the order the JAX package's pipeline
+    gives them: sorted, as its pooled collation and its frame cache read
+    them, unless a frame repeats (a top-up batch), which both refuse."""
+    return idxs if len(set(idxs)) < len(idxs) else sorted(idxs)
+
+
+def check_transfer_dtype(transfer_dtype: Optional[str], device_cache_gb: float) -> Optional[str]:
+    """``transfer_dtype`` as the JAX ``DataModule`` resolves it: bf16 when a
+    device cache is asked for and none is named; None or "bfloat16"."""
+    if transfer_dtype is None and device_cache_gb > 0:
+        transfer_dtype = "bfloat16"
+    if transfer_dtype not in TRANSFER_DTYPES:
+        raise ValueError(f"transfer_dtype must be bfloat16/float32, got {transfer_dtype}")
+    return None if transfer_dtype == "float32" else transfer_dtype
+
+
+def cast_cells(cells: np.ndarray, dtype: Optional[str]) -> np.ndarray | torch.Tensor:
+    """The f32 cells as they reach the device: as they are, or rounded to
+    bf16 (a CPU tensor, round to nearest even, as the JAX cast)."""
+    if dtype is None:
+        return cells
+    return torch.from_numpy(np.ascontiguousarray(cells)).to(getattr(torch, dtype))
+
+
+def collate(data: CaseData, stats: FieldStats, variables: Sequence[Variable], dtype: Optional[str] = None) -> Batch:
     variables = tuple(variables)
     return Batch(
-        cells=data.stacked_cells(variables),
+        cells=cast_cells(data.stacked_cells(variables), dtype),
         t=np.asarray(data.t),
         grid=GridMap.from_metadata(data.metadata, variables, device="cpu"),
         metadata=data.metadata,
@@ -305,6 +345,9 @@ class DataModule:
     rows of every global train batch of ``batch_size``; ``shard_by_host``
     instead splits the train cases over the ranks, each taking full batches
     of its own cases, and ``shard_eval`` splits the evaluation cases.
+    ``device_cache_gb`` and ``transfer_dtype`` are the JAX module's: they
+    decide the training frames' dtype as there (the module docstring), and
+    nothing else.
     """
 
     def __init__(
@@ -321,6 +364,8 @@ class DataModule:
         shard_by_host: bool = False,
         shard_eval: bool = False,
         device: Optional[str | torch.device] = None,
+        device_cache_gb: float = 0.0,
+        transfer_dtype: Optional[str] = None,
     ):
         self.root = Path(root)
         self.discard_first_seconds = discard_first_seconds
@@ -334,6 +379,7 @@ class DataModule:
         self.shard_by_host = shard_by_host
         self.shard_eval = shard_eval
         self.device = pinned_device(device)
+        self.transfer_dtype = check_transfer_dtype(transfer_dtype, device_cache_gb)
 
         self.stats: Optional[FieldStats] = None
         self.train_dataset: Optional[CaseDataset] = None
@@ -377,9 +423,10 @@ class DataModule:
             # A rank that ran out of batches first would leave the others
             # waiting in the gradients' all-reduce.
             sampler = itertools.islice(sampler, self.n_train_batches())
-        elif world > 1:
+        sampler = map(train_order, sampler)
+        if world > 1 and not self.shard_by_host:
             sampler = (local_rows(idxs, rank, world) for idxs in sampler)
-        return self._iterate(self.train_dataset, sampler)
+        return self._iterate(self.train_dataset, sampler, self.transfer_dtype)
 
     def n_train_batches(self) -> int:
         """Train batches per epoch; with ``shard_by_host``, the fewest any
@@ -415,7 +462,7 @@ class DataModule:
         )
         return self._iterate(dataset, sampler)
 
-    def _iterate(self, dataset: CaseDataset, sampler) -> Iterator[Batch]:
-        batches = (collate(dataset[idxs], self.stats, self.variables) for idxs in sampler)
+    def _iterate(self, dataset: CaseDataset, sampler, dtype: Optional[str] = None) -> Iterator[Batch]:
+        batches = (collate(dataset[idxs], self.stats, self.variables, dtype) for idxs in sampler)
         transform = None if self.device is None else (lambda batch: batch.to(self.device))
         return prefetch(batches, size=self.prefetch_size, transform=transform)

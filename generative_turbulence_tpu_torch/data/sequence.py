@@ -7,8 +7,14 @@ window starts, the per-epoch shuffle (``GeometryPureBatches`` with the rng
 key (seed, epoch)) and the eval windows are the JAX module's, so the batches
 are bit-equal to its own for the same seed and epoch.
 
-Left out, as in ``data/dataset.py``: the cell bucket and the
-device-resident window cache (``SequenceDeviceCache``), workarounds for the
+Training windows carry the values the JAX module's give, not its
+residency.  With ``device_cache_gb > 0`` the windows of every case that the
+JAX ``SequenceDeviceCache`` would hold (``WindowCacheCapacity``) reach the
+device rounded to bf16, in the sampler's order; every case after the first
+that does not fit stays float32, as it streams there.  The JAX module's
+``eval_device_cache_gb`` changes no value (its eval caches are float32 and
+equal to streaming) and is not taken.  Left out, as in ``data/dataset.py``:
+the resident windows themselves and the bucket padding, workarounds for the
 TPU host link and XLA recompiles.  With ``device`` set, each batch is moved
 there in the prefetch thread (``Batch.to``).  In a ``torch.distributed`` run
 each rank keeps its rows of every global train batch, as ``DataModule``
@@ -32,12 +38,14 @@ from .dataset import (
     CaseDataset,
     EvaluationBatches,
     GeometryPureBatches,
+    cast_cells,
     pinned_device,
     prefetch,
 )
 from .grid import GridMap
+from .npyd import open_case_file
 from .schema import CaseRepository, FieldStats, find_data_files
-from .variables import Variable
+from .variables import Variable, total_dims
 
 
 @dataclasses.dataclass
@@ -77,6 +85,16 @@ class SequenceDataset(CaseDataset):
                 raise ValueError("Sequence windows require consecutive frames")
             self.valid_steps.append(idxs)
 
+    def cache_steps(self, file_idx: int) -> np.ndarray:
+        """Every frame a window of this case can reach, as the JAX window
+        cache uploads them: from the first window's start through the last
+        start + (T-1) x stride."""
+        starts = self.valid_steps[file_idx]
+        if len(starts) == 0:
+            return np.asarray(starts)
+        last = starts[-1] + (self.sequence_length - 1) * self.stride
+        return np.arange(starts[0], last + 1)
+
     def __getitem__(self, index) -> CaseData:
         if isinstance(index, (int, np.integer)):
             index = [index]
@@ -97,10 +115,51 @@ class SequenceDataset(CaseDataset):
         return CaseData(metadata=data.metadata, t=t, fields=fields)
 
 
-def collate_sequence(data: CaseData, stats: FieldStats, variables: Sequence[Variable]) -> SequenceBatch:
+class WindowCacheCapacity:
+    """The capacity bookkeeping of the JAX package's training
+    ``SequenceDeviceCache`` (``DeviceFrameCache._upload``), without the
+    residency: which training cases it would hold.  A case is reckoned at its
+    cached frames (``SequenceDataset.cache_steps``) x its cells padded up to
+    ``cell_bucket`` x its channels x 2 bytes (bf16), when a batch of it first
+    asks; the first case that does not fit fills the cache for good.  The JAX cache also stops where an
+    upload runs out of device memory; that rule depends on the device and is
+    not reproduced."""
+
+    def __init__(self, capacity_bytes: int, cell_bucket: int):
+        self.capacity = int(capacity_bytes)
+        self.cell_bucket = cell_bucket
+        self.used = 0
+        self.full = False
+        self.cases: set = set()
+
+    def case_bytes(self, dataset: SequenceDataset, file_idx: int) -> int:
+        variables = dataset.repo.variables
+        with open_case_file(dataset.repo.files[file_idx]) as f:
+            n = int(f["data"][variables[0].key].shape[1])
+        nb = -(-n // self.cell_bucket) * self.cell_bucket if self.cell_bucket else n
+        return len(dataset.cache_steps(file_idx)) * nb * total_dims(variables) * 2
+
+    def holds(self, dataset: SequenceDataset, file_idx: int) -> bool:
+        """Whether the cache holds case ``file_idx`` once a batch of it has
+        asked (taking it in if it fits)."""
+        if file_idx in self.cases:
+            return True
+        if self.full:
+            return False
+        nbytes = self.case_bytes(dataset, file_idx)
+        if self.used + nbytes > self.capacity:
+            self.full = True
+            return False
+        self.used += nbytes
+        self.cases.add(file_idx)
+        return True
+
+
+def collate_sequence(data: CaseData, stats: FieldStats, variables: Sequence[Variable],
+                     dtype: Optional[str] = None) -> SequenceBatch:
     variables = tuple(variables)
     return SequenceBatch(
-        cells=np.concatenate([data.fields[v] for v in variables], axis=-1),
+        cells=cast_cells(np.concatenate([data.fields[v] for v in variables], axis=-1), dtype),
         t=np.asarray(data.t),
         grid=GridMap.from_metadata(data.metadata, variables, device="cpu"),
         metadata=data.metadata,
@@ -112,7 +171,9 @@ def collate_sequence(data: CaseData, stats: FieldStats, variables: Sequence[Vari
 class SequenceDataModule:
     """Windows of ``seq_len`` frames for training and ``eval_seq_len`` for
     evaluation from ``root/{train,val,test}/<case>/``; ``device`` as in
-    ``DataModule``."""
+    ``DataModule``; ``cell_bucket`` and ``device_cache_gb`` decide which
+    training windows are bf16, as in the JAX module (the module
+    docstring)."""
 
     def __init__(
         self,
@@ -129,6 +190,8 @@ class SequenceDataModule:
         prefetch_size: int = 2,
         seed: int = 0,
         device: Optional[str | torch.device] = None,
+        cell_bucket: int = 16384,
+        device_cache_gb: float = 0.0,
     ):
         self.root = Path(root)
         self.discard_first_seconds = discard_first_seconds
@@ -145,6 +208,7 @@ class SequenceDataModule:
         self.device = pinned_device(device)
         # The JAX module shards no evaluation cases (the Trainer asks).
         self.shard_eval = False
+        self.train_cache = WindowCacheCapacity(int(device_cache_gb * 1e9), cell_bucket) if device_cache_gb > 0 else None
 
         self.stats: Optional[FieldStats] = None
         self.train_dataset: Optional[SequenceDataset] = None
@@ -181,7 +245,7 @@ class SequenceDataModule:
         rank, world = process_rank_and_world()
         if world > 1:
             sampler = (local_rows(idxs, rank, world) for idxs in sampler)
-        return self._iterate(self.train_dataset, sampler)
+        return self._iterate(self.train_dataset, sampler, self.train_cache)
 
     def n_train_batches(self) -> int:
         return len(GeometryPureBatches(self.train_dataset, batch_size=self.batch_size, shuffle=True))
@@ -198,7 +262,12 @@ class SequenceDataModule:
         )
         return self._iterate(self.test_dataset, sampler)
 
-    def _iterate(self, dataset: SequenceDataset, sampler) -> Iterator[SequenceBatch]:
-        batches = (collate_sequence(dataset[idxs], self.stats, self.variables) for idxs in sampler)
+    def _iterate(self, dataset: SequenceDataset, sampler,
+                 cache: Optional[WindowCacheCapacity] = None) -> Iterator[SequenceBatch]:
+        def dtype(idxs):
+            held = cache is not None and cache.holds(dataset, dataset.locate(np.asarray(idxs))[0])
+            return "bfloat16" if held else None
+
+        batches = (collate_sequence(dataset[idxs], self.stats, self.variables, dtype(idxs)) for idxs in sampler)
         transform = None if self.device is None else (lambda batch: batch.to(self.device))
         return prefetch(batches, size=self.prefetch_size, transform=transform)

@@ -17,7 +17,8 @@ JAX samplers.
 The training loss (``loss``, ``p_losses``) draws from the same kind of
 source: ``loss`` draws the timesteps ``noise.randint(B, T)`` (uniform over
 [0, T), one per batch element) and then the noise of ``x_start``'s shape, in
-the JAX loss's order.  It is the masked mean over in-domain cells of the l2
+the JAX loss's order (``Bf16NormalLaw`` gives that noise the law JAX's has
+where the training frames are bf16).  It is the masked mean over in-domain cells of the l2
 or l1 error of the epsilon (or v) head, optionally min-SNR weighted, plus
 the weighted ELBO term with learned variances.
 """
@@ -25,6 +26,8 @@ the weighted ELBO term with learned variances.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -50,6 +53,35 @@ class GeneratorNoise:
         """``n`` int64 draws, uniform over [0, high)."""
         return torch.randint(0, high, (n,), generator=self.generator, device=self.device)
 
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_normal_levels(device: torch.device) -> torch.Tensor:
+    """The 128 values of JAX's bf16 ``jax.random.normal`` as XLA compiles it
+    under jit, on ``device``: 8 random bits give k = bits >> 1 and the bf16
+    uniform u = k / 64 - 255/256, whose f32 erf_inv is rounded to bf16 and
+    multiplied by sqrt(2) rounded to bf16 (1.4140625), the product kept in
+    f32.  Computed on the CPU, so that every device holds the same values."""
+    k = torch.arange(128, dtype=torch.float32)
+    return (torch.erfinv(k / 64 - 0.99609375).to(torch.bfloat16).float() * 1.4140625).to(device)
+
+
+class Bf16NormalLaw:
+    """A noise source whose normals follow the law of the JAX loss's noise
+    where the training frames are bf16 (it draws at ``x_start.dtype``): each
+    element one of ``bf16_normal_levels``'s 128 values, all as likely, drawn
+    as ``noise.randint(n, 128)``.  The timestep draws pass through."""
+
+    def __init__(self, noise):
+        self.noise = noise
+
+    def __call__(self, shape: Sequence[int]) -> torch.Tensor:
+        shape = tuple(shape)
+        k = self.noise.randint(math.prod(shape), 128)
+        return bf16_normal_levels(k.device)[k].reshape(shape)
+
+    def randint(self, n: int, high: int) -> torch.Tensor:
+        return self.noise.randint(n, high)
 
 def _bcast(coefs: torch.Tensor, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """Gather per-timestep coefficients and broadcast right against ``like``."""

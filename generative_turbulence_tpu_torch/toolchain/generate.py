@@ -7,7 +7,9 @@ ready polyMesh via the pure-python boxmesh), and records mesh-params.json.
 
 A copy of ``generative_turbulence_tpu/toolchain/generate.py`` whose mock
 solves write the case file through the port's format layer: ``data.npyd``
-by default, ``data.h5`` with ``format="h5"`` (``h5py`` imported only there).
+by default, ``data.h5`` with ``format="h5"`` (``h5py`` imported only there),
+and whose 2D channel keeps its one z cell at every ``scale`` (the JAX copy
+fails on its 2D holes at 0.25 and 0.5 and meshes 2 z cells from 1.5).
 """
 
 from __future__ import annotations
@@ -41,7 +43,9 @@ class ChannelConfig:
 
     @property
     def scaled_counts(self) -> Tuple[int, int, int]:
-        return tuple(int(round(c * self.scale)) for c in self.cell_counts)
+        # An axis of one cell (a 2D channel's z) stays one cell at any scale;
+        # the JAX package rounds it to 0 cells below 0.75 and to 2 from 1.5.
+        return tuple(c if c == 1 else int(round(c * self.scale)) for c in self.cell_counts)
 
     @property
     def h(self) -> Tuple[float, float, float]:
@@ -60,14 +64,9 @@ class ChannelConfig:
     def scaled_holes(self) -> List[Box]:
         if self.scale == 1.0:
             return list(self.holes)
-        s = self.scale
-        return [
-            Box(
-                tuple(int(round(l * s)) for l in b.lo),
-                tuple(int(round(h * s)) for h in b.hi),
-            )
-            for b in self.holes
-        ]
+        keep = [c == 1 for c in self.cell_counts]  # as in scaled_counts
+        scaled = lambda v: tuple(x if k else int(round(x * self.scale)) for x, k in zip(v, keep))  # noqa: E731
+        return [Box(scaled(b.lo), scaled(b.hi)) for b in self.holes]
 
 
 def generate_case(

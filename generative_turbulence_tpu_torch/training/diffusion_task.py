@@ -39,7 +39,7 @@ from ..data.dataset import Batch
 from ..data.grid import GridMap, embed_cells, gather_cells, x_slab_view
 from ..data.schema import FieldStats
 from ..data.variables import Variable, total_dims
-from ..diffusion.gaussian import GaussianDiffusion, NoiseFn
+from ..diffusion.gaussian import Bf16NormalLaw, GaussianDiffusion, NoiseFn
 from ..eval.metrics import SampleMetricsCollection
 from ..eval.sample_store import SampleStore
 from ..models.conditioning import Conditioning
@@ -325,7 +325,10 @@ class DiffusionTask:
     # ---- steps -----------------------------------------------------------------
 
     def _model_input(self, cells: torch.Tensor, grid: GridMap) -> torch.Tensor:
-        return self.normalizer.normalize(embed_cells(cells, grid))
+        """The normalized dense grid in f32: bf16 training frames are
+        embedded in bf16, Dirichlet values rounded likewise, then normalized
+        as JAX's jitted step does it (``Normalizer.normalize_frames``)."""
+        return self.normalizer.normalize_frames(embed_cells(cells, grid))
 
     @staticmethod
     def spatial_axis() -> SpatialAxis:
@@ -356,11 +359,15 @@ class DiffusionTask:
         no sync with the host; in a group of several ranks ``cells`` are the
         rank's rows of the global batch, ``noise`` gives the rank's rows of
         the global draws (``parallel.mesh.RankRows``), the gradients are the
-        global batch's and the loss is the mean over the ranks.  The three
-        parts run in the profiler ranges ``train/loss``, ``train/backward``
-        (with DDP's all-reduce) and ``train/optimizer``."""
+        global batch's and the loss is the mean over the ranks.  bf16 frames
+        take their noise from ``Bf16NormalLaw(noise)``, as JAX draws it at
+        their dtype.  The three parts run in the profiler ranges
+        ``train/loss``, ``train/backward`` (with DDP's all-reduce) and
+        ``train/optimizer``."""
         if self.opt_state is None:
             self.init_state()
+        if cells.dtype == torch.bfloat16:
+            noise = Bf16NormalLaw(noise)
         params = list(self.net.parameters())
         for p in params:
             p.grad = None

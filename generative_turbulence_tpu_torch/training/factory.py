@@ -6,11 +6,15 @@ baseline (TF-Net, DilResNet) over ``SequenceDataModule``.  Gradient
 accumulation feeds micro-batches of ``batch_size // accumulate_steps``; the
 learning-rate schedule spans ``max_epochs`` epochs of optimizer updates.
 
-The data fields of the JAX package's TPU workarounds are read by nothing
-here (ROADMAP queue 1 leaves them out for good): ``cell_bucket``,
-``buffer_pool``, ``device_cache_gb``, ``eval_device_cache_gb``,
-``transfer_dtype`` and ``device_prefetch``.  Batches always reach the device
-in the prefetch thread.
+The data fields of the JAX package's device frame caches change the
+values its training batches have, so the data modules take them for that
+and nothing else: ``device_cache_gb`` and ``transfer_dtype`` (bf16 training
+frames) and, for the window module, ``cell_bucket`` (only for its cache's
+capacity in bucket-padded bytes).  Not read: ``eval_device_cache_gb`` (JAX's
+eval caches are float32 and change no value), ``buffer_pool`` (the port's
+training batches always come in the order JAX's pooled collation gives,
+its default) and ``device_prefetch`` (batches always reach the device in
+the prefetch thread, as they do in JAX with its default).
 """
 
 from __future__ import annotations
@@ -40,8 +44,6 @@ def instantiate_data_and_task(config: Config, device="cuda") -> Tuple[object, ob
     micro_batch = max(1, dc.batch_size // k)
 
     if mc.name == "diffusion":
-        # cell_bucket, buffer_pool, device_cache_gb, transfer_dtype and
-        # device_prefetch are TPU-host workarounds the port leaves out.
         dm = DataModule(
             root,
             discard_first_seconds=dc.discard_first_seconds,
@@ -55,11 +57,11 @@ def instantiate_data_and_task(config: Config, device="cuda") -> Tuple[object, ob
             shard_by_host=dc.shard_by_host,
             shard_eval=dc.shard_eval,
             device=device,
+            device_cache_gb=dc.device_cache_gb,
+            transfer_dtype=dc.transfer_dtype,
         )
         task_cls = DiffusionTask
     elif mc.name in ("tfnet", "dilresnet"):
-        # cell_bucket, device_cache_gb and eval_device_cache_gb are TPU-host
-        # workarounds the port leaves out.
         dm = SequenceDataModule(
             root,
             discard_first_seconds=dc.discard_first_seconds,
@@ -74,6 +76,8 @@ def instantiate_data_and_task(config: Config, device="cuda") -> Tuple[object, ob
             prefetch_size=dc.prefetch_size,
             seed=tc.seed,
             device=device,
+            cell_bucket=dc.cell_bucket,
+            device_cache_gb=dc.device_cache_gb,
         )
         task_cls = TFNetTask if mc.name == "tfnet" else DilResNetTask
     else:

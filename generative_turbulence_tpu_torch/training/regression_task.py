@@ -188,8 +188,9 @@ class RegressionTaskBase:
 
     def _model_input(self, cells: torch.Tensor, grid: GridMap) -> torch.Tensor:
         """(B, T, n_cells, F) -> normalized dense (B, T, X, Y, Z, F) in f32
-        (the net casts to its compute dtype itself)."""
-        return self.normalizer.normalize(embed_cells(cells, grid)).float()
+        (the net casts to its compute dtype itself); bf16 training windows
+        are embedded in bf16 (``normalize_frames``)."""
+        return self.normalizer.normalize_frames(embed_cells(cells, grid))
 
     # ---- rollout ---------------------------------------------------------------
 

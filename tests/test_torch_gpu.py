@@ -941,3 +941,37 @@ def test_generated_case_trains_on_gpu(toolchain_root, tmp_path):
     val = next(r for r in records if "val/tke" in r)
     assert losses and all(np.isfinite(losses))
     assert np.isfinite(score) and np.isfinite(val["val/tke"]) and np.isfinite(val["val/max-mean-tke-pos"])
+
+
+@pytest.mark.gpu
+def test_r5_recipe_batches_on_gpu(npyd_root):
+    """The r5 recipe's training batches (``data.device_cache_gb=2``: bf16,
+    sorted, micro-batches of 3) through the factory on the card, against
+    the same recipe's on the CPU: every batch of two epochs bit-equal, and
+    the first one the bf16 rounding of the f32 frames of the plain module's
+    batch.  Then the r5 step's noise law on the card: the 128 levels of the
+    CPU's table, each about as frequent."""
+    from generative_turbulence_tpu_torch.data.dataset import DataModule
+    from generative_turbulence_tpu_torch.diffusion.gaussian import Bf16NormalLaw, GeneratorNoise, bf16_normal_levels
+    from generative_turbulence_tpu_torch.scripts.run_shapes import recipe_argv
+    from generative_turbulence_tpu_torch.training.config import parse_cli_overrides
+    from generative_turbulence_tpu_torch.training.factory import instantiate_data_and_task
+
+    _needs_card()
+    config = parse_cli_overrides(recipe_argv("diffusion-r5", [
+        f"data.root={npyd_root}", "data.discard_first_seconds=-1", "model.dim=8", "model.u_net_levels=1"])).resolved()
+    modules = {device: instantiate_data_and_task(config, device)[0] for device in ("cuda", "cpu")}
+    for epoch in (0, 1):
+        for got, want in zip(modules["cuda"].train_batches(epoch), modules["cpu"].train_batches(epoch), strict=True):
+            assert got.cells.is_cuda and got.cells.dtype == want.cells.dtype == torch.bfloat16
+            assert got.cells.shape[0] == 3 and np.array_equal(got.t, want.t) and np.all(np.diff(got.t) > 0)
+            assert torch.equal(got.cells.cpu(), want.cells)
+    plain = DataModule(npyd_root, discard_first_seconds=-1, batch_size=3).setup("fit")
+    first = next(iter(plain.train_batches(0)))
+    got = next(iter(modules["cuda"].train_batches(0)))
+    assert np.array_equal(got.t, first.t)
+    assert torch.equal(got.cells.cpu(), torch.from_numpy(first.cells).to(torch.bfloat16))
+    law = Bf16NormalLaw(GeneratorNoise(torch.Generator(device="cuda").manual_seed(0), "cuda"))
+    values, counts = torch.unique(law((64, 64, 64)), return_counts=True)
+    assert values.is_cuda and torch.equal(values.cpu(), bf16_normal_levels(torch.device("cpu")))
+    assert counts.min() > 0.85 * 2048 and counts.max() < 1.15 * 2048

@@ -180,8 +180,10 @@ LOOP = [
     "model.batch_size=12", "model.ema_decay=0.9", "model.learning_rate=0.5", "model.min_learning_rate=5e-3",
     "trainer.max_epochs=2", "trainer.log_every_n_steps=1", "trainer.wasserstein_solver=exact",
     "model.compute_expensive_sample_metrics=true",
-    # JAX-side TPU workarounds off, so both packages see the same arrays.
-    "data.cell_bucket=0", "data.buffer_pool=false", "data.device_prefetch=false",
+    # JAX-side TPU workarounds off, so both packages see the same arrays;
+    # its pooled collation (default) stays on: it sorts a batch's frames, as
+    # the port does.
+    "data.cell_bucket=0", "data.device_prefetch=false",
 ]
 
 
@@ -470,15 +472,22 @@ def test_factory_with_accumulation(synthetic_root, tmp_path):
     assert any(not torch.equal(p0[k], v) for k, v in task.net.state_dict().items())
 
 
-def test_factory_ignores_the_tpu_workaround_fields(synthetic_root, tmp_path):
-    """The data fields of the JAX package's TPU workarounds are accepted and
-    change nothing."""
+def test_factory_cache_fields_give_jax_train_frames(synthetic_root, tmp_path):
+    """The data fields of the JAX package's TPU workarounds are accepted;
+    those of its device frame caches give the training frames the dtype JAX's
+    have (``tests/test_torch_frame_cache.py`` holds them against JAX): each
+    batch rounded to bf16 in the same sorted order, and nothing else
+    changed; the eval batches stay f32."""
     plain, _ = _factory_task(synthetic_root, tmp_path / "a")
     fields = ["data.cell_bucket=0", "data.buffer_pool=false", "data.device_cache_gb=2",
               "data.eval_device_cache_gb=1", "data.transfer_dtype=bfloat16", "data.device_prefetch=false"]
     other, _ = _factory_task(synthetic_root, tmp_path / "b", *fields)
-    a, b = next(iter(plain.train_batches(0))), next(iter(other.train_batches(0)))
-    assert torch.equal(a.cells, b.cells) and a.cells.dtype == torch.float32
+    for a, b in zip(plain.train_batches(0), other.train_batches(0), strict=True):
+        assert a.cells.dtype == torch.float32 and b.cells.dtype == torch.bfloat16
+        assert np.array_equal(b.t, a.t) and np.all(np.diff(a.t) > 0)
+        assert torch.equal(b.cells, a.cells.to(torch.bfloat16))
+    for a, b in zip(plain.val_batches(), other.val_batches(), strict=True):
+        assert torch.equal(a.cells, b.cells) and a.cells.dtype == torch.float32
 
 
 def test_factory_rejects_an_unknown_model(synthetic_root, tmp_path):
